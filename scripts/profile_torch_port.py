@@ -1,0 +1,88 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port's serving path, on one CUDA GPU.
+
+    python3 scripts/profile_torch_port.py [--nb-path 1048576] [--out chiprun_out]
+
+For each warm call of the BTC-chain serving path (analytic ``price_chain``,
+``compute_model_ivols_for_chain``, and the MC chain with implied vols
+through the CUDA kernel) it prints one line: host wall-clock (median of 3
+unprofiled calls), device busy time (sum of device kernel time of one
+profiled call, from ``torch.profiler``), the device's idle share
+(1 - busy / wall), the number of device kernels, and the three kernels that
+take the most device time.  The full ``key_averages`` tables go to ``<out>/``.
+Exits 1 without a CUDA device.
+"""
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+
+def _profile(name, fn, out_dir: Path):
+    fn()  # warm
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    wall_ms = sorted(walls)[1]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+    (out_dir / f"profile_{name}.txt").write_text(table)
+    rec = {"call": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms, "kernel_launches": len(events),
+           "top_kernels_ms": [[k[:60], v] for k, v in top]}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--nb-path", type=int, default=1 << 20)
+    parser.add_argument("--out", default="chiprun_out")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_port: needs a CUDA device", file=sys.stderr)
+        return 1
+    import stochvolmodels_torch as svt
+
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    chain, params = svt.get_btc_test_chain_data(), svt.LOGSV_BTC_PARAMS
+    pricer = svt.LogSVPricer(device="cuda")
+    print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
+    recs = [
+        _profile("price_chain", lambda: pricer.price_chain(chain, params), out_dir),
+        _profile("compute_model_ivols_for_chain",
+                 lambda: pricer.compute_model_ivols_for_chain(chain, params), out_dir),
+        _profile("model_mc_price_chain",
+                 lambda: pricer.model_mc_price_chain(chain, params, engine="cuda",
+                                                     nb_path=args.nb_path, seed=24,
+                                                     nb_steps=360), out_dir),
+        _profile("compute_mc_chain_implied_vols",
+                 lambda: pricer.compute_mc_chain_implied_vols(chain, params, engine="cuda",
+                                                              nb_path=args.nb_path, seed=24,
+                                                              nb_steps=360), out_dir),
+    ]
+    (out_dir / "profile_summary.json").write_text(json.dumps(recs, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

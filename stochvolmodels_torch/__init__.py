@@ -1,0 +1,58 @@
+"""
+stochvolmodels_torch: the PyTorch and CUDA port of stochvolmodels_tpu.
+
+It imports torch, numpy and scipy only — never jax and nothing of the JAX
+package, which stays beside it as the reference the port is tested against.
+This slice serves pricing requests for the flagship LogSV model: analytic
+chain prices through the affine-expansion Fourier engine, BSM implied vols,
+and Monte Carlo through a hand-written CUDA kernel on NVIDIA Hopper.
+Every pricer takes its device explicitly (``LogSVPricer(device="cuda")``).
+"""
+from stochvolmodels_torch.config import (  # noqa: F401
+    OPTION_CODES,
+    OptionType,
+    VariableType,
+    decode_optiontypes,
+    encode_optiontypes,
+)
+from stochvolmodels_torch.data.option_chain import ChainGrid, OptionChain, OptionSlice  # noqa: F401
+from stochvolmodels_torch.data.sample_chains import get_btc_test_chain_data  # noqa: F401
+from stochvolmodels_torch.interop import chain_from_numpy, params_from_numpy  # noqa: F401
+from stochvolmodels_torch.models.logsv.affine import (  # noqa: F401
+    ExpansionOrder,
+    func_a_ode_quadratic_terms,
+    get_expansion_n,
+    get_init_conditions_a,
+    solve_a_ode_grid,
+)
+from stochvolmodels_torch.models.logsv.params import LogSvParams  # noqa: F401
+from stochvolmodels_torch.models.logsv.pricer import (  # noqa: F401
+    LOGSV_BTC_PARAMS,
+    LogSVPricer,
+    logsv_chain_price_grid,
+    logsv_mc_chain_pricer,
+    set_vol_scaler,
+    simulate_logsv_terminal,
+)
+from stochvolmodels_torch.models.model_pricer import ModelParams, ModelPricer  # noqa: F401
+from stochvolmodels_torch.ops.bsm import (  # noqa: F401
+    compute_bsm_vanilla_price,
+    compute_bsm_vanilla_vega,
+    infer_bsm_implied_vol,
+    infer_bsm_ivols_from_model_chain_prices,
+)
+from stochvolmodels_torch.ops.cuda_mc import (  # noqa: F401
+    engine_setup,
+    simulate_logsv_terminal_cuda,
+    simulate_logsv_terminal_kernel,
+    simulate_logsv_terminal_torch,
+)
+from stochvolmodels_torch.ops.gauss import erfcc, ncdf, npdf  # noqa: F401
+from stochvolmodels_torch.ops.mgf import (  # noqa: F401
+    compute_integration_weights,
+    get_phi_grid,
+    get_transform_var_grid,
+    vanilla_prices_with_mgf_grid,
+)
+from stochvolmodels_torch.ops.payoffs import compute_mc_vars_payoff  # noqa: F401
+from stochvolmodels_torch.utils.funcs import find_nearest, npad, set_time_grid, timer, unpad  # noqa: F401

@@ -1,0 +1,158 @@
+"""
+Option-chain containers.
+
+PyTorch counterpart of ``stochvolmodels_tpu/data/option_chain.py``: the
+user-facing :class:`OptionChain` keeps ragged per-maturity numpy lists, and
+lowers to a dense padded :class:`ChainGrid` of tensors on a chosen device —
+(n_ttm, max_strikes) panels with a validity mask.  Padded strike slots carry
+the slice forward (log-moneyness 0, always finite) and a call code.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from stochvolmodels_torch.config import encode_optiontypes
+from stochvolmodels_torch.ops import bsm
+from stochvolmodels_torch.utils.funcs import npad, unpad
+
+
+@dataclass(frozen=True)
+class ChainGrid:
+    """dense padded chain panel.
+
+    ``strikes``/``optioncodes``/``mask`` have shape (n_ttm, max_strikes), the
+    rest (n_ttm,).  Floats are float64, codes int8, mask bool.
+    """
+    ttms: torch.Tensor
+    forwards: torch.Tensor
+    discfactors: torch.Tensor
+    strikes: torch.Tensor
+    optioncodes: torch.Tensor  # int8; bit0=is_call, bit1=is_inverse
+    mask: torch.Tensor         # bool, True on real quotes
+
+    @property
+    def device(self) -> torch.device:
+        return self.strikes.device
+
+    def to(self, device) -> "ChainGrid":
+        """the same grid with every tensor on ``device``."""
+        return ChainGrid(ttms=self.ttms.to(device), forwards=self.forwards.to(device),
+                         discfactors=self.discfactors.to(device),
+                         strikes=self.strikes.to(device),
+                         optioncodes=self.optioncodes.to(device),
+                         mask=self.mask.to(device))
+
+
+@dataclass
+class OptionSlice:
+    """single-maturity container."""
+    ttm: float
+    forward: float
+    strikes: np.ndarray
+    optiontypes: np.ndarray
+    id: str
+    discfactor: Optional[float] = None
+    discount_rate: Optional[float] = None
+    bid_ivs: Optional[np.ndarray] = None
+    ask_ivs: Optional[np.ndarray] = None
+    bid_prices: Optional[np.ndarray] = None
+    ask_prices: Optional[np.ndarray] = None
+
+    def __post_init__(self):
+        if self.discfactor is not None:
+            self.discount_rate = -np.log(self.discfactor) / self.ttm
+        elif self.discount_rate is not None:
+            self.discfactor = np.exp(-self.discount_rate * self.ttm)
+        else:
+            self.discfactor = 1.0
+            self.discount_rate = 0.0
+
+
+@dataclass
+class OptionChain:
+    """chain of ragged per-maturity numpy arrays; ``to_grid`` lowers it to tensors."""
+    ttms: np.ndarray
+    forwards: np.ndarray
+    strikes_ttms: Sequence[np.ndarray]
+    optiontypes_ttms: Sequence[np.ndarray]
+    ids: Optional[np.ndarray] = None
+    discfactors: Optional[np.ndarray] = None
+    discount_rates: Optional[np.ndarray] = None
+    ticker: Optional[str] = None
+    bid_ivs: Optional[Sequence[np.ndarray]] = None
+    ask_ivs: Optional[Sequence[np.ndarray]] = None
+    bid_prices: Optional[Sequence[np.ndarray]] = None
+    ask_prices: Optional[Sequence[np.ndarray]] = None
+    forwards0: Optional[np.ndarray] = None
+
+    def __post_init__(self):
+        self.ttms = np.asarray(self.ttms, dtype=float)
+        self.forwards = np.asarray(self.forwards, dtype=float)
+        self.strikes_ttms = [np.asarray(s, dtype=float) for s in self.strikes_ttms]
+        self.optiontypes_ttms = [np.asarray(t) for t in self.optiontypes_ttms]
+        if self.ids is None:
+            self.ids = np.array([f"{ttm:0.2f}" for ttm in self.ttms])
+        if self.discfactors is not None:
+            self.discfactors = np.asarray(self.discfactors, dtype=float)
+            self.discount_rates = -np.log(self.discfactors) / self.ttms
+        elif self.discount_rates is not None:
+            self.discount_rates = np.asarray(self.discount_rates, dtype=float)
+            self.discfactors = np.exp(-self.discount_rates * self.ttms)
+        else:
+            self.discfactors = np.ones_like(self.ttms)
+            self.discount_rates = np.zeros_like(self.ttms)
+
+    def to_grid(self, device="cpu") -> ChainGrid:
+        """lower to the dense padded panel on ``device``."""
+        strikes, mask = npad(self.strikes_ttms, pad_value=np.nan)
+        # pad strikes with the row forward: log-moneyness 0, always finite
+        strikes = np.where(mask, strikes, self.forwards[:, None])
+        codes, _ = npad([encode_optiontypes(t) for t in self.optiontypes_ttms],
+                        pad_value=1)  # pad as calls
+        f64 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), device=device)
+        return ChainGrid(ttms=f64(self.ttms), forwards=f64(self.forwards),
+                         discfactors=f64(self.discfactors), strikes=f64(strikes),
+                         optioncodes=torch.as_tensor(codes.astype(np.int8), device=device),
+                         mask=torch.as_tensor(mask, device=device))
+
+    def unpad_panel(self, panel) -> List[np.ndarray]:
+        """split a (n_ttm, max_strikes) panel (tensor or array) into the ragged list."""
+        if isinstance(panel, torch.Tensor):
+            panel = panel.detach().cpu().numpy()
+        _, mask = npad(self.strikes_ttms, pad_value=np.nan)
+        return unpad(np.asarray(panel), mask)
+
+    @classmethod
+    def slice_to_chain(cls, ttm: float, forward: float, strikes: np.ndarray,
+                       optiontypes: np.ndarray, discfactor: float = 1.0,
+                       id: Optional[str] = None) -> "OptionChain":
+        """single-slice chain from raw arrays."""
+        return cls(ttms=np.array([ttm]), forwards=np.array([forward]),
+                   strikes_ttms=[np.asarray(strikes)],
+                   optiontypes_ttms=[np.asarray(optiontypes)],
+                   discfactors=np.array([discfactor]),
+                   ids=np.array([id]) if id is not None else np.array([f"{ttm:0.2f}"]))
+
+    def compute_model_ivols_from_chain_data(self, model_prices,
+                                            forwards: np.ndarray = None,
+                                            device="cpu") -> List[np.ndarray]:
+        """invert model prices to BSM ivols on ``device``.
+
+        ``model_prices`` may be the ragged list or a padded (T, K) panel.
+        """
+        if forwards is None:
+            forwards = self.forwards
+        if isinstance(model_prices, (list, tuple)):
+            model_prices, _ = npad([np.asarray(p) for p in model_prices], pad_value=np.nan)
+        prices_panel = torch.as_tensor(model_prices, dtype=torch.float64, device=device)
+        grid = self.to_grid(device=device)
+        ivols = bsm.infer_bsm_ivols_from_model_chain_prices(
+            ttms=grid.ttms, forwards=torch.as_tensor(np.asarray(forwards, dtype=np.float64),
+                                                     device=device),
+            discfactors=grid.discfactors, strikes_ttms=grid.strikes,
+            optiontypes_ttms=grid.optioncodes, model_prices_ttms=prices_panel)
+        return self.unpad_panel(ivols)

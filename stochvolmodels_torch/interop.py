@@ -1,0 +1,55 @@
+"""
+Carry state over from the JAX package, through plain numpy and floats only.
+
+Nothing here imports the JAX package: callers hand over what its objects hold
+(``LogSvParams.to_dict()``, the ragged arrays of an ``OptionChain``), so the
+same state can be fed to both packages.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional, Sequence
+
+import numpy as np
+
+from stochvolmodels_torch.data.option_chain import OptionChain
+from stochvolmodels_torch.models.logsv.params import LogSvParams
+
+
+def params_from_numpy(d: Mapping[str, Any]) -> LogSvParams:
+    """LogSvParams from the JAX package's ``LogSvParams.to_dict()``.
+
+    A vol backbone may come as a ``(ttms, etas)`` pair or as any series-like
+    object with ``.index`` and values (a pandas Series), read through numpy.
+    """
+    backbone = d.get("vol_backbone")
+    if backbone is not None and hasattr(backbone, "index"):
+        backbone = (np.asarray(backbone.index, dtype=float), np.asarray(backbone, dtype=float))
+    elif backbone is not None:
+        backbone = (np.asarray(backbone[0], dtype=float), np.asarray(backbone[1], dtype=float))
+    optional = lambda k: None if d.get(k) is None else np.asarray(d[k], dtype=float)
+    return LogSvParams(sigma0=float(d["sigma0"]), theta=float(d["theta"]),
+                       kappa1=float(d["kappa1"]),
+                       kappa2=None if d.get("kappa2") is None else float(d["kappa2"]),
+                       beta=float(d["beta"]), volvol=float(d["volvol"]),
+                       vol_backbone=backbone, H=float(d.get("H", 0.5)),
+                       weights=optional("weights"), nodes=optional("nodes"))
+
+
+def chain_from_numpy(ttms: Sequence[float],
+                     forwards: Sequence[float],
+                     strikes_ttms: Sequence[np.ndarray],
+                     optiontypes_ttms: Sequence[np.ndarray],
+                     discfactors: Optional[Sequence[float]] = None,
+                     ids: Optional[Sequence[str]] = None,
+                     ticker: Optional[str] = None,
+                     bid_ivs: Optional[Sequence[np.ndarray]] = None,
+                     ask_ivs: Optional[Sequence[np.ndarray]] = None) -> OptionChain:
+    """OptionChain from the ragged arrays of a JAX-package ``OptionChain``."""
+    as_list = lambda seq: None if seq is None else [np.asarray(a) for a in seq]
+    return OptionChain(ttms=np.asarray(ttms, dtype=float),
+                       forwards=np.asarray(forwards, dtype=float),
+                       strikes_ttms=as_list(strikes_ttms),
+                       optiontypes_ttms=[np.asarray(t).astype(str) for t in optiontypes_ttms],
+                       discfactors=None if discfactors is None else np.asarray(discfactors, dtype=float),
+                       ids=None if ids is None else np.asarray(ids),
+                       ticker=ticker, bid_ivs=as_list(bid_ivs), ask_ivs=as_list(ask_ivs))

@@ -1,0 +1,85 @@
+"""
+Parameters of the log-normal beta SV model with quadratic drift
+(Sepp & Rakhmonov, IJTAF 2024):
+
+    dsigma_t = (kappa1 + kappa2 sigma_t)(theta - sigma_t) dt
+               + beta sigma_t dW0_t + volvol sigma_t dW1_t.
+
+PyTorch-package counterpart of ``stochvolmodels_tpu/models/logsv/params.py``.
+The vol backbone is a pair of numpy arrays ``(ttms, etas)``.
+"""
+from __future__ import annotations
+
+from dataclasses import asdict, dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+from stochvolmodels_torch.models.model_pricer import ModelParams
+from stochvolmodels_torch.utils.funcs import find_nearest
+
+
+@dataclass
+class LogSvParams(ModelParams):
+    """six model parameters, an optional vol backbone and the rough-kernel fields."""
+    sigma0: float = 0.2
+    theta: float = 0.2
+    kappa1: float = 1.0
+    kappa2: Optional[float] = 2.5  # None maps to kappa1 / theta
+    beta: float = -1.0
+    volvol: float = 1.0
+    vol_backbone: Optional[Tuple[np.ndarray, np.ndarray]] = None  # (ttms, etas)
+    H: float = 0.5
+    weights: Optional[np.ndarray] = None
+    nodes: Optional[np.ndarray] = None
+
+    def __post_init__(self):
+        if self.kappa2 is None:
+            self.kappa2 = self.kappa1 / self.theta
+        if not 1e-4 < self.H <= 0.5:
+            raise ValueError(f"H must lie in (1e-4, 0.5], got {self.H}")
+
+    def to_dict(self) -> Dict[str, Any]:
+        return asdict(self)
+
+    def to_str(self) -> str:
+        return (f"sigma0={self.sigma0:0.2f}, theta={self.theta:0.2f}, "
+                f"kappa1={self.kappa1:0.2f}, kappa2={self.kappa2:0.2f}, "
+                f"beta={self.beta:0.2f}, volvol={self.volvol:0.2f}")
+
+    def set_vol_backbone(self, ttms: np.ndarray, etas: np.ndarray) -> None:
+        self.vol_backbone = (np.asarray(ttms, dtype=float), np.asarray(etas, dtype=float))
+
+    def get_vol_backbone_eta(self, tau: float) -> float:
+        """backbone scaling at the nearest quoted maturity at or beyond tau."""
+        if self.vol_backbone is None:
+            return 1.0
+        ttms, etas = self.vol_backbone
+        nearest_tau = find_nearest(a=ttms, value=tau, is_equal_or_largest=True)
+        return float(etas[int(np.flatnonzero(ttms == nearest_tau)[0])])
+
+    def get_vol_backbone_etas(self, ttms: np.ndarray) -> np.ndarray:
+        return np.array([self.get_vol_backbone_eta(tau) for tau in ttms])
+
+    @property
+    def kappa(self) -> float:
+        """effective mean-reversion kappa1 + kappa2 theta (Eq. 3.32)."""
+        return self.kappa1 + self.kappa2 * self.theta
+
+    @property
+    def theta2(self) -> float:
+        return self.theta * self.theta
+
+    @property
+    def vartheta2(self) -> float:
+        """total vol-of-vol variance beta^2 + volvol^2 (Eq. 3.13)."""
+        return self.beta * self.beta + self.volvol * self.volvol
+
+    @property
+    def gamma(self) -> float:
+        return self.kappa1 / self.theta
+
+    @property
+    def eta(self) -> float:
+        """GIG steady-state exponent (Eq. 3.38)."""
+        return 2.0 * (self.kappa2 * self.theta - self.kappa1) / self.vartheta2 - 1.0

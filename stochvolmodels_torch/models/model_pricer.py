@@ -1,0 +1,115 @@
+"""
+ModelPricer: the interface every model implements.
+
+PyTorch counterpart of ``stochvolmodels_tpu/models/model_pricer.py``.  A
+concrete pricer supplies ``price_chain`` (analytic transform pricing) and
+``model_mc_price_chain``; this base class builds slice and vanilla pricing,
+implied vols and MC confidence bands on top.  Results at the API boundary are
+ragged numpy lists; the tensor work runs on the pricer's ``device``, which the
+caller names (default ``"cpu"``).
+"""
+from __future__ import annotations
+
+from abc import ABC, abstractmethod
+from dataclasses import asdict, dataclass
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from stochvolmodels_torch.config import VariableType
+from stochvolmodels_torch.data.option_chain import OptionChain
+
+
+@dataclass
+class ModelParams:
+    """abstract container for model parameters."""
+
+    @classmethod
+    def copy(cls, obj: "ModelParams") -> "ModelParams":
+        return cls(**asdict(obj))
+
+    def to_dict(self) -> Dict:
+        return asdict(self)
+
+
+class ModelPricer(ABC):
+    """pricer interface shared by every model; tensors live on ``device``."""
+
+    def __init__(self, device="cpu"):
+        self.device = torch.device(device)
+
+    @abstractmethod
+    def price_chain(self, option_chain: OptionChain, params: ModelParams,
+                    **kwargs) -> List[np.ndarray]:
+        """price chain data analytically; returns ragged list of price arrays."""
+
+    def compute_chain_prices_with_vols(self,
+                                       option_chain: OptionChain,
+                                       params: ModelParams,
+                                       variable_type: VariableType = VariableType.LOG_RETURN,
+                                       **kwargs
+                                       ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+        """price chain and invert to model implied vols."""
+        model_prices = self.price_chain(option_chain=option_chain, params=params,
+                                        variable_type=variable_type, **kwargs)
+        model_ivols = option_chain.compute_model_ivols_from_chain_data(
+            model_prices=model_prices, device=self.device)
+        return model_prices, model_ivols
+
+    def compute_model_ivols_for_chain(self, option_chain: OptionChain,
+                                      params: ModelParams, **kwargs) -> List[np.ndarray]:
+        """model implied vols for the chain."""
+        _, model_ivols = self.compute_chain_prices_with_vols(
+            option_chain=option_chain, params=params, **kwargs)
+        return model_ivols
+
+    def model_mc_price_chain(self, option_chain: OptionChain, params: ModelParams,
+                             variable_type: VariableType = VariableType.LOG_RETURN,
+                             **kwargs) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+        """price chain by simulating model dynamics; (prices, stderrs)."""
+        raise NotImplementedError("must be implemented in parent class")
+
+    def price_slice(self, params: ModelParams, ttm: float, forward: float,
+                    strikes: np.ndarray, optiontypes: np.ndarray,
+                    discfactor: float = 1.0, **kwargs
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        """price one maturity slice; returns (prices, ivols)."""
+        option_chain = OptionChain.slice_to_chain(ttm=ttm, forward=forward,
+                                                  strikes=strikes,
+                                                  optiontypes=optiontypes,
+                                                  discfactor=discfactor)
+        model_prices = self.price_chain(option_chain=option_chain, params=params, **kwargs)
+        model_ivols = option_chain.compute_model_ivols_from_chain_data(
+            model_prices=model_prices, device=self.device)
+        return model_prices[0], model_ivols[0]
+
+    def price_vanilla(self, params: ModelParams, ttm: float, forward: float,
+                      strike: float, optiontype: str, discfactor: float = 1.0,
+                      **kwargs) -> Tuple[float, float]:
+        """price one option; returns (price, ivol)."""
+        model_prices, model_ivols = self.price_slice(
+            params=params, ttm=ttm, forward=forward,
+            strikes=np.array([strike]), optiontypes=np.array([optiontype]),
+            discfactor=discfactor, **kwargs)
+        return model_prices[0], model_ivols[0]
+
+    def compute_mc_chain_implied_vols(self,
+                                      option_chain: OptionChain,
+                                      params: ModelParams,
+                                      variable_type: VariableType = VariableType.LOG_RETURN,
+                                      nb_path: int = 100000,
+                                      **kwargs
+                                      ) -> Tuple[List[np.ndarray], ...]:
+        """MC prices and implied vols with 1.96-sigma confidence bands."""
+        model_prices_ttms, option_std_ttms = self.model_mc_price_chain(
+            option_chain=option_chain, params=params,
+            variable_type=variable_type, nb_path=nb_path, **kwargs)
+        std_factor = 1.96
+        ups = [p + std_factor * s for p, s in zip(model_prices_ttms, option_std_ttms)]
+        downs = [np.maximum(p - std_factor * s, 1e-10)
+                 for p, s in zip(model_prices_ttms, option_std_ttms)]
+        ivols = lambda prices: option_chain.compute_model_ivols_from_chain_data(
+            model_prices=prices, device=self.device)
+        return (model_prices_ttms, ups, downs, ivols(model_prices_ttms), ivols(ups),
+                ivols(downs), option_std_ttms)

@@ -1,0 +1,76 @@
+"""
+Shared numerical utilities: time grids, timing, ragged-array padding.
+
+PyTorch-package counterpart of ``stochvolmodels_tpu/utils/funcs.py``, without
+the pandas helpers.
+"""
+from __future__ import annotations
+
+import functools
+import time
+from typing import Sequence, Tuple
+
+import numpy as np
+
+
+def set_time_grid(ttm: float, nb_steps_per_year: int = 360) -> Tuple[int, float, np.ndarray]:
+    """simulation time grid for one maturity.
+
+    ``nb_steps = int(ttm * nb_steps_per_year) + 1`` and ``grid_t`` has
+    ``nb_steps + 1`` points spanning [0, ttm]; ``dt`` is the first spacing of
+    that linspace, exactly as the JAX package computes it.
+    """
+    nb_steps = int(ttm * nb_steps_per_year) + 1
+    grid_t = np.linspace(0.0, ttm, nb_steps + 1)
+    dt = float(grid_t[1] - grid_t[0])
+    return nb_steps, dt, grid_t
+
+
+def timer(func):
+    """decorator printing the wall-clock runtime of the wrapped call."""
+    @functools.wraps(func)
+    def wrapper_timer(*args, **kwargs):
+        start_time = time.perf_counter()
+        value = func(*args, **kwargs)
+        end_time = time.perf_counter()
+        print(f"Finished {func.__name__!r} in {end_time - start_time:.4f} secs")
+        return value
+    return wrapper_timer
+
+
+def find_nearest(a: np.ndarray,
+                 value: float,
+                 is_sorted: bool = True,
+                 is_equal_or_largest: bool = False
+                 ) -> float:
+    """element of ``a`` closest to ``value`` (binary search when sorted)."""
+    a = np.asarray(a)
+    if is_sorted:
+        idx = np.searchsorted(a, value, side="left")
+        if is_equal_or_largest:
+            return a[min(idx, len(a) - 1)]
+        if idx > 0 and (idx == len(a) or np.abs(value - a[idx - 1]) < np.abs(value - a[idx])):
+            return a[idx - 1]
+        return a[idx]
+    idx = int(np.abs(a - value).argmin())
+    return a[idx]
+
+
+def npad(arrays: Sequence[np.ndarray], pad_value: float = np.nan) -> Tuple[np.ndarray, np.ndarray]:
+    """pad a ragged list of 1-D arrays into a dense (n, max_len) array + bool mask."""
+    n = len(arrays)
+    k = max((len(np.asarray(a)) for a in arrays), default=0)
+    out = np.full((n, k), pad_value, dtype=np.result_type(*(np.asarray(a).dtype for a in arrays)))
+    mask = np.zeros((n, k), dtype=bool)
+    for i, a in enumerate(arrays):
+        a = np.asarray(a)
+        out[i, :len(a)] = a
+        mask[i, :len(a)] = True
+    return out, mask
+
+
+def unpad(dense: np.ndarray, mask: np.ndarray) -> list:
+    """inverse of :func:`npad`: recover the ragged list of 1-D numpy arrays."""
+    dense = np.asarray(dense)
+    mask = np.asarray(mask)
+    return [dense[i][mask[i]] for i in range(dense.shape[0])]

@@ -1,0 +1,59 @@
+"""Import hygiene of the PyTorch port.
+
+``stochvolmodels_torch`` must import, and price, in a process where jax,
+pandas, matplotlib and triton cannot be imported at all (the machine with
+the card has none of jax, pandas and matplotlib; triton is imported only
+inside the functions that launch a Triton kernel).  No module of the port
+imports jax or the JAX package.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "stochvolmodels_torch"
+
+_CHILD = r'''
+import importlib.abc
+import sys
+
+BLOCKED = {"jax", "jaxlib", "pandas", "matplotlib", "triton", "stochvolmodels_tpu"}
+
+
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ModuleNotFoundError(f"blocked import: {name}")
+        return None
+
+
+sys.meta_path.insert(0, _Block())
+import numpy as np
+import stochvolmodels_torch as svt
+
+chain = svt.get_btc_test_chain_data()
+prices, ivols = svt.LogSVPricer(device="cpu").price_slice(
+    params=svt.LOGSV_BTC_PARAMS, ttm=chain.ttms[0], forward=chain.forwards[0],
+    strikes=chain.strikes_ttms[0], optiontypes=chain.optiontypes_ttms[0])
+assert np.all(np.isfinite(prices)) and np.all((ivols > 0.5) & (ivols < 1.5)), ivols
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not loaded, loaded
+print("ok", len(prices))
+'''
+
+
+def test_port_imports_and_prices_without_jax_pandas_matplotlib_triton():
+    out = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, capture_output=True,
+                         text=True, timeout=300, env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok 12"
+
+
+def test_no_module_of_the_port_imports_jax_or_the_jax_package():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|stochvolmodels_tpu)\b", re.M)
+    sources = sorted(PORT.rglob("*.py"))
+    assert len(sources) >= 15
+    offenders = [str(p.relative_to(REPO)) for p in sources if pattern.search(p.read_text())]
+    assert not offenders, offenders
