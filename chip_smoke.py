@@ -6,15 +6,20 @@ sm_90a, an H100) and the CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds the hand-written LogSV Monte-Carlo kernel from ``csrc/``, holds it
-against its plain PyTorch version on the card, drives the port's serving path
-on the bundled BTC chain (analytic prices and implied vols, then MC prices
-and implied vols through the kernel), and measures kernel throughput.  Each
-phase prints one line; any failure raises and exits non-zero.  The last line
-is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
+It builds the hand-written Monte-Carlo kernels from ``csrc/`` (LogSV, Heston
+and rough LogSV, one nvcc each, started together), holds each against its
+plain PyTorch version on the card, drives the port's serving paths on the
+bundled BTC chain (LogSV analytic prices and implied vols, then MC through
+its kernel; Heston analytic prices, implied vols and MC through its kernel;
+the rough LogSV MC through its kernel), and measures each kernel's
+throughput against its plain version.  Each path runs with every launch
+count set to 0 just before it and read just after.  Each phase prints one
+line; any failure raises and exits non-zero.  The last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.
 """
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -32,6 +37,9 @@ THROUGHPUT_TTM = 1.0      # 361 Euler steps at 360 steps/yr
 # Euler bias moves the far-OTM call ivols by up to 0.014 from the analytic
 # ones; at 360 steps/yr the largest gap is 0.007 (plain version, 2^20 paths).
 MC_STEPS_PER_YEAR = 360
+KERNELS = ("logsv_mc", "heston_mc", "rough_mc")
+# the rough kernel-vs-plain and throughput phases: 3 nodes of the H = 0.1 lift
+ROUGH_H, ROUGH_NODES, ROUGH_T = 0.1, 3, 0.43
 
 
 def _check(ok: bool, what: str) -> None:
@@ -71,6 +79,85 @@ def _event_ms(fn, repeats: int) -> float:
     return start.elapsed_time(end) / repeats
 
 
+def _ptxas(log: str) -> str:
+    """registers and spills of each kernel entry in an nvcc -Xptxas -v log;
+    template instances of the rough kernel are named by their factor count."""
+    parts, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            n = re.search(r"ILi(\d+)E", m.group(1))
+            entry = f"N={n.group(1)}" if n else "kernel"
+        elif "spill" in line and entry:
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            parts.append([entry, None, f"spills {spills.group(1)}/{spills.group(2)} B"])
+        elif "Used" in line and "registers" in line and parts:
+            parts[-1][1] = re.search(r"Used (\d+) registers", line).group(1) + " registers"
+    return "; ".join(f"{e}: {r}, {s}" for e, r, s in sorted(parts))
+
+
+def _reset_counts(cuda_mc) -> None:
+    for fn in (cuda_mc.simulate_logsv_terminal_cuda, cuda_mc.simulate_heston_terminal_cuda,
+               cuda_mc.simulate_rough_terminal_cuda):
+        fn.launches = 0
+
+
+def _counts(cuda_mc) -> dict:
+    return {"logsv_mc": cuda_mc.simulate_logsv_terminal_cuda.launches,
+            "heston_mc": cuda_mc.simulate_heston_terminal_cuda.launches,
+            "rough_mc": cuda_mc.simulate_rough_terminal_cuda.launches}
+
+
+def _vs_plain(name, nb_steps, kernel_out, plain_out, labels) -> float:
+    """print and check the kernel's outputs against the plain version's (max
+    relative error <= 1e-4 in each output, absolute for log-returns that
+    start at 0); returns the max absolute error."""
+    torch.cuda.synchronize()
+    rels, max_abs = [], 0.0
+    for label, k, p in zip(labels, kernel_out, plain_out):
+        _check(bool(torch.isfinite(k).all()), f"{name} kernel output {label} not finite")
+        diff = (k - p).abs()
+        max_abs = max(max_abs, float(diff.max()))
+        rel = float(diff.max()) if label == "x" else float((diff / p.abs()).max())
+        rels.append(f"{label} max {'abs' if label == 'x' else 'rel'} {rel:.3e}")
+        _check(rel <= 1e-4, f"{name} kernel disagrees with its plain version in {label}: {rel}")
+    print(f"[kernel-vs-plain] {name} {NB_PATH} paths x {nb_steps} steps: "
+          f"{', '.join(rels)} (limits 1e-4); max abs error {max_abs:.3e}", flush=True)
+    return max_abs
+
+
+def _throughput(name, run_k, run_p, nb_steps):
+    """(kernel ms, plain ms) at NB_PATH x nb_steps by CUDA events, in turns:
+    plain, kernel, kernel, plain."""
+    run_k(), run_p()
+    plain_ms = [_event_ms(run_p, 2)]
+    kernel_ms = [_event_ms(run_k, 10), _event_ms(run_k, 10)]
+    plain_ms.append(_event_ms(run_p, 2))
+    k_ms, p_ms = statistics.mean(kernel_ms), statistics.mean(plain_ms)
+    path_steps = NB_PATH * nb_steps
+    print(f"[throughput] {name} {NB_PATH} paths x {nb_steps} steps: kernel {k_ms:.3f} ms "
+          f"({path_steps / k_ms * 1e3:.4e} path-steps/s), plain {p_ms:.3f} ms "
+          f"({path_steps / p_ms * 1e3:.4e} path-steps/s); runs kernel {kernel_ms}, "
+          f"plain {plain_ms}", flush=True)
+    return k_ms, p_ms
+
+
+def _gpu_vs_cpu(gpu, cpu, chain, params, prices, ivols, what):
+    """the card's analytic ``prices`` and ``ivols`` against the CPU's; returns
+    (price gap / forward, warm price ms, warm ivols ms)."""
+    prices_cpu = cpu.price_chain(chain, params)
+    ivols_cpu = cpu.compute_model_ivols_for_chain(chain, params)
+    for pg, pc, ig, ic, fwd in zip(prices, prices_cpu, ivols, ivols_cpu, chain.forwards):
+        _check(np.all(np.isfinite(pg)) and np.all(np.isfinite(ig)), f"{what} analytic output not finite")
+        _check(np.max(np.abs(pg - pc)) <= 1e-10 * fwd, f"{what} GPU prices differ from CPU prices")
+        _check(np.max(np.abs(ig - ic)) <= 1e-8, f"{what} GPU ivols differ from CPU ivols")
+    gap = max(float(np.max(np.abs(pg - pc) / fwd))
+              for pg, pc, fwd in zip(prices, prices_cpu, chain.forwards))
+    price_ms = _warm_ms(lambda: gpu.price_chain(chain, params))
+    ivol_ms = _warm_ms(lambda: gpu.compute_model_ivols_for_chain(chain, params))
+    return gap, price_ms, ivol_ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a GPU",
@@ -78,6 +165,7 @@ def main() -> int:
         return 1
     import stochvolmodels_torch as svt
     from stochvolmodels_torch.ops import _build, cuda_mc
+    from stochvolmodels_torch.utils.funcs import set_time_grid
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -86,17 +174,16 @@ def main() -> int:
           f"cuda {torch.version.cuda} | python {sys.version.split()[0]}", flush=True)
     dev = torch.device(DEVICE)
 
-    # 2. build the kernel from the sources in the checkout
+    # 2. build the kernels from the sources in the checkout, one nvcc each, in parallel
     t0 = time.perf_counter()
-    _build.load_library("logsv_mc")
+    _build.load_libraries(KERNELS)
     build_s = time.perf_counter() - t0
-    info = _build.BUILD_INFO["logsv_mc"]
-    ptxas = " ".join(line.strip() for line in info.get("log", "").splitlines()
-                     if "registers" in line or "spill" in line)
-    print(f"[build] logsv_mc.cu in {build_s:.2f} s (nvcc {info.get('seconds', 0.0):.2f} s) "
-          f"| ptxas: {ptxas}", flush=True)
+    for name in KERNELS:
+        info = _build.BUILD_INFO[name]
+        print(f"[build] {name}.cu (nvcc {info.get('seconds', 0.0):.2f} s; all {build_s:.2f} s) "
+              f"| ptxas: {_ptxas(info.get('log', ''))}", flush=True)
 
-    # 3. kernel against its plain version on the card, at 2^20 paths
+    # 3. each kernel against its plain version on the card, at 2^20 paths
     P = svt.LOGSV_BTC_PARAMS
     rng = np.random.default_rng(7)
     x0 = torch.as_tensor(rng.normal(0.0, 0.1, NB_PATH).astype(np.float32), device=dev)
@@ -104,44 +191,39 @@ def main() -> int:
     q0 = torch.as_tensor(rng.uniform(0.0, 0.1, NB_PATH).astype(np.float32), device=dev)
     mc_kw = dict(ttm=MAIN_TTM, theta=P.theta, kappa1=P.kappa1, kappa2=P.kappa2,
                  beta=P.beta, volvol=P.volvol)
-    before = cuda_mc.simulate_logsv_terminal_cuda.launches
-    xk, sk, qk = cuda_mc.simulate_logsv_terminal_cuda(7, x0, s0, q0, **mc_kw)
-    torch.cuda.synchronize()
-    _check(cuda_mc.simulate_logsv_terminal_cuda.launches == before + 1, "launch count did not move")
-    xp, sp, qp = cuda_mc.simulate_logsv_terminal_torch(7, x0, s0, q0, **mc_kw)
-    torch.cuda.synchronize()
-    for t in (xk, sk, qk):
-        _check(bool(torch.isfinite(t).all()), "kernel output not finite")
-    x_abs = float((xk - xp).abs().max())
-    s_rel = float(((sk - sp).abs() / sp).max())
-    q_rel = float(((qk - qp).abs() / qp).max())
-    max_abs_err = max(x_abs, float((sk - sp).abs().max()), float((qk - qp).abs().max()))
-    print(f"[kernel-vs-plain] {NB_PATH} paths x 91 steps: x max abs {x_abs:.3e}, "
-          f"sigma max rel {s_rel:.3e}, qvar max rel {q_rel:.3e} (limits 1e-4)", flush=True)
-    _check(x_abs <= 1e-4 and s_rel <= 1e-4 and q_rel <= 1e-4, "kernel disagrees with plain version")
-
-    # 4.-5. the main path: analytic pricing and MC through the kernel
+    main_steps = set_time_grid(MAIN_TTM, MC_STEPS_PER_YEAR)[0]
+    err = {"logsv_mc": _vs_plain(
+        "logsv_mc", main_steps, cuda_mc.simulate_logsv_terminal_cuda(7, x0, s0, q0, **mc_kw),
+        cuda_mc.simulate_logsv_terminal_torch(7, x0, s0, q0, **mc_kw), ("x", "sigma", "qvar"))}
+    H = svt.BTC_HESTON_PARAMS
+    v0 = torch.as_tensor(rng.uniform(0.3, 1.2, NB_PATH).astype(np.float32), device=dev)
+    heston_kw = dict(ttm=MAIN_TTM, theta=H.theta, kappa=H.kappa, rho=0.3, volvol=H.volvol)
+    err["heston_mc"] = _vs_plain(
+        "heston_mc", main_steps, cuda_mc.simulate_heston_terminal_cuda(7, x0, v0, q0, **heston_kw),
+        cuda_mc.simulate_heston_terminal_torch(7, x0, v0, q0, **heston_kw), ("x", "var", "qvar"))
+    nodes, weights = svt.european_rule(ROUGH_H, ROUGH_NODES, ROUGH_T)
+    vartheta = float(np.hypot(P.beta, P.volvol))
+    rough_kw = dict(ttm=MAIN_TTM, sigma0=P.sigma0, theta=P.theta, kappa1=P.kappa1,
+                    kappa2=P.kappa2, rho=P.beta / vartheta, volvol=vartheta, nodes=nodes,
+                    weights=weights, device=dev)
+    err["rough_mc"] = _vs_plain(
+        "rough_mc", main_steps, cuda_mc.simulate_rough_terminal_cuda(7, NB_PATH, **rough_kw),
+        cuda_mc.simulate_rough_terminal_torch(7, NB_PATH, **rough_kw), ("x", "vw", "y"))
     chain = svt.get_btc_test_chain_data()
+    launches = {}
+
+    # 4.-5. LogSV path: analytic pricing and MC through the kernel
     gpu, cpu = svt.LogSVPricer(device=DEVICE), svt.LogSVPricer(device="cpu")
-    cuda_mc.simulate_logsv_terminal_cuda.launches = 0
+    _reset_counts(cuda_mc)
     prices = gpu.price_chain(chain, P)
     ivols = gpu.compute_model_ivols_for_chain(chain, P)
     mc = gpu.compute_mc_chain_implied_vols(chain, P, engine="cuda", nb_path=NB_PATH, seed=24,
                                            nb_steps=MC_STEPS_PER_YEAR)
-    main_launches = cuda_mc.simulate_logsv_terminal_cuda.launches
-    _check(main_launches == len(chain.ttms), f"main path launched {main_launches} kernels")
-
-    prices_cpu = cpu.price_chain(chain, P)
-    ivols_cpu = cpu.compute_model_ivols_for_chain(chain, P)
-    for pg, pc, ig, ic, fwd in zip(prices, prices_cpu, ivols, ivols_cpu, chain.forwards):
-        _check(np.all(np.isfinite(pg)) and np.all(np.isfinite(ig)), "analytic output not finite")
+    launches["logsv_mc"] = _counts(cuda_mc)["logsv_mc"]
+    _check(launches["logsv_mc"] == len(chain.ttms), f"LogSV path launched {launches['logsv_mc']} kernels")
+    gap, price_ms, ivol_ms = _gpu_vs_cpu(gpu, cpu, chain, P, prices, ivols, "LogSV")
+    for ig in ivols:
         _check(np.all((ig > 0.5) & (ig < 1.5)), f"ivols outside [0.5, 1.5]: {ig}")
-        _check(np.max(np.abs(pg - pc)) <= 1e-10 * fwd, "GPU prices differ from CPU prices")
-        _check(np.max(np.abs(ig - ic)) <= 1e-8, "GPU ivols differ from CPU ivols")
-    price_ms = _warm_ms(lambda: gpu.price_chain(chain, P))
-    ivol_ms = _warm_ms(lambda: gpu.compute_model_ivols_for_chain(chain, P))
-    gap = max(float(np.max(np.abs(pg - pc) / fwd))
-              for pg, pc, fwd in zip(prices, prices_cpu, chain.forwards))
     print(f"[analytic] BTC chain {sum(len(s) for s in chain.strikes_ttms)} options: "
           f"GPU vs CPU max |dprice|/fwd {gap:.2e}; warm price_chain {price_ms:.1f} ms, "
           f"warm compute_model_ivols_for_chain {ivol_ms:.1f} ms", flush=True)
@@ -163,32 +245,90 @@ def main() -> int:
         _check(added == len(chain.ttms), f"one MC chain call made {added} launches")
 
     mc_ms = _warm_ms(mc_call, repeats=3)
-    print(f"[mc-chain] {NB_PATH} paths, {main_launches} kernel launches for "
+    print(f"[mc-chain] {NB_PATH} paths, {launches['logsv_mc']} kernel launches for "
           f"{len(chain.ttms)} maturities; max |MC ivol - analytic ivol| {worst:.4f}; "
           f"warm compute_mc_chain_implied_vols {mc_ms:.1f} ms", flush=True)
 
-    # 6. throughput at 2^20 paths x 361 steps: plain, kernel, kernel, plain
-    tp_kw = dict(mc_kw, ttm=THROUGHPUT_TTM)
-    nb_steps = svt.set_time_grid(THROUGHPUT_TTM, 360)[0]
-    run_k = lambda: cuda_mc.simulate_logsv_terminal_cuda(7, x0, s0, q0, **tp_kw)
-    run_p = lambda: cuda_mc.simulate_logsv_terminal_torch(7, x0, s0, q0, **tp_kw)
-    run_k(), run_p()
-    plain_ms = [_event_ms(run_p, 2)]
-    kernel_ms = [_event_ms(run_k, 10), _event_ms(run_k, 10)]
-    plain_ms.append(_event_ms(run_p, 2))
-    k_ms, p_ms = statistics.mean(kernel_ms), statistics.mean(plain_ms)
-    path_steps = NB_PATH * nb_steps
-    print(f"[throughput] {NB_PATH} paths x {nb_steps} steps: kernel {k_ms:.3f} ms "
-          f"({path_steps / k_ms * 1e3:.4e} path-steps/s), plain {p_ms:.3f} ms "
-          f"({path_steps / p_ms * 1e3:.4e} path-steps/s); runs kernel {kernel_ms}, "
-          f"plain {plain_ms}", flush=True)
+    # 6. Heston path: analytic pricing and MC through the kernel
+    hgpu, hcpu = svt.HestonPricer(device=DEVICE), svt.HestonPricer(device="cpu")
+    _reset_counts(cuda_mc)
+    hprices = hgpu.price_chain(chain, H)
+    hivols = hgpu.compute_model_ivols_for_chain(chain, H)
+    hmc = hgpu.compute_mc_chain_implied_vols(chain, H, engine="cuda", nb_path=NB_PATH, seed=24)
+    launches["heston_mc"] = _counts(cuda_mc)["heston_mc"]
+    _check(launches["heston_mc"] == len(chain.ttms),
+           f"Heston path launched {launches['heston_mc']} kernels")
+    gap, price_ms, ivol_ms = _gpu_vs_cpu(hgpu, hcpu, chain, H, hprices, hivols, "Heston")
+    print(f"[heston-analytic] GPU vs CPU max |dprice|/fwd {gap:.2e}; warm price_chain "
+          f"{price_ms:.1f} ms, warm compute_model_ivols_for_chain {ivol_ms:.1f} ms", flush=True)
+    worst = 0.0
+    for a, m, s in zip(hprices, hmc[0], hmc[6]):
+        _check(np.all(np.isfinite(m)), f"Heston MC prices not finite: {m}")
+        ratio = np.abs(a - m) / (4.0 * s + 5e-3 * a)   # tests/test_heston.py's rule
+        _check(np.all(ratio < 1.0), f"Heston MC {m} outside 4 stderr + 0.5% of analytic {a}")
+        worst = max(worst, float(np.max(ratio)))
+    hmc_ms = _warm_ms(lambda: hgpu.compute_mc_chain_implied_vols(
+        chain, H, engine="cuda", nb_path=NB_PATH, seed=24), repeats=3)
+    print(f"[heston-mc-chain] {NB_PATH} paths, {launches['heston_mc']} kernel launches for "
+          f"{len(chain.ttms)} maturities; max |MC - analytic| / (4 stderr + 0.5% price) "
+          f"{worst:.3f}; warm compute_mc_chain_implied_vols {hmc_ms:.1f} ms", flush=True)
 
+    # 7. rough LogSV path: the lift's MC through the kernel, H = 0.5 then 0.1
+    max_ttm = float(np.max(chain.ttms))
+    rough_params = {}
+    for h in (0.5, 0.1):
+        rough_params[h] = svt.LogSvParams(**{**P.to_dict(), "H": h})
+        rough_params[h].approximate_kernel(T=max_ttm)
+    rough_call = lambda h: gpu.model_mc_price_chain(chain, rough_params[h], nb_path=NB_PATH,
+                                                    use_rough_mc=True, engine="cuda", seed=24)
+    _reset_counts(cuda_mc)
+    rmc, rstd = rough_call(0.5)
+    launches["rough_mc"] = _counts(cuda_mc)["rough_mc"]
+    _check(launches["rough_mc"] == len(chain.ttms),
+           f"rough path launched {launches['rough_mc']} kernels")
+    analytic = cpu.price_chain(chain, rough_params[0.5])
+    worst = 0.0
+    for a, m, s in zip(analytic, rmc, rstd):
+        ratio = np.abs(a - m) / (4.0 * s + 0.02 * a + 2e-4 * chain.forwards[0])
+        _check(np.all(ratio < 1.0), f"rough H=0.5 MC {m} outside the band of analytic {a}")
+        worst = max(worst, float(np.max(ratio)))
+    rough_ivols = chain.compute_model_ivols_from_chain_data(model_prices=rough_call(0.1)[0])
+    finite = []
+    for iv in rough_ivols:
+        ok = np.isfinite(iv)
+        finite.append(float(np.mean(ok)))
+        _check(np.mean(ok) > 0.8 and np.all((iv[ok] > 0.3) & (iv[ok] < 2.5)),
+               f"rough H=0.1 ivols not sane: {iv}")
+    rough_ms = _warm_ms(lambda: rough_call(0.1), repeats=3)
+    print(f"[rough-mc-chain] {NB_PATH} paths, {launches['rough_mc']} kernel launches for "
+          f"{len(chain.ttms)} maturities; H=0.5 max |MC - analytic| / band {worst:.3f}; "
+          f"H=0.1 ({ROUGH_NODES} nodes) finite ivol shares {finite}; warm "
+          f"model_mc_price_chain(use_rough_mc=True) {rough_ms:.1f} ms", flush=True)
+
+    # 8. throughput at 2^20 paths x 361 steps: plain, kernel, kernel, plain
+    nb_steps = set_time_grid(THROUGHPUT_TTM, 360)[0]
+    times = {}
+    tp_kw = dict(mc_kw, ttm=THROUGHPUT_TTM)
+    times["logsv_mc"] = _throughput(
+        "logsv_mc", lambda: cuda_mc.simulate_logsv_terminal_cuda(7, x0, s0, q0, **tp_kw),
+        lambda: cuda_mc.simulate_logsv_terminal_torch(7, x0, s0, q0, **tp_kw), nb_steps)
+    tp_kw = dict(heston_kw, ttm=THROUGHPUT_TTM)
+    times["heston_mc"] = _throughput(
+        "heston_mc", lambda: cuda_mc.simulate_heston_terminal_cuda(7, x0, v0, q0, **tp_kw),
+        lambda: cuda_mc.simulate_heston_terminal_torch(7, x0, v0, q0, **tp_kw), nb_steps)
+    tp_kw = dict(rough_kw, ttm=THROUGHPUT_TTM)
+    times["rough_mc"] = _throughput(
+        f"rough_mc (N={ROUGH_NODES})",
+        lambda: cuda_mc.simulate_rough_terminal_cuda(7, NB_PATH, **tp_kw),
+        lambda: cuda_mc.simulate_rough_terminal_torch(7, NB_PATH, **tp_kw), nb_steps)
+
+    replaces = {"logsv_mc": 142, "heston_mc": 282, "rough_mc": 386}
     print(json.dumps({"kernels": [{
-        "name": "logsv_mc", "route": "cuda",
-        "source": "stochvolmodels_torch/csrc/logsv_mc.cu",
-        "replaces": "stochvolmodels_tpu/ops/pallas_mc.py:142",
-        "launches": main_launches, "max_abs_err": max_abs_err,
-        "ms": k_ms, "plain_ms": p_ms}]}))
+        "name": name, "route": "cuda",
+        "source": f"stochvolmodels_torch/csrc/{name}.cu",
+        "replaces": f"stochvolmodels_tpu/ops/pallas_mc.py:{replaces[name]}",
+        "launches": launches[name], "max_abs_err": err[name],
+        "ms": times[name][0], "plain_ms": times[name][1]} for name in KERNELS]}))
     print(_smi_name_and_power())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -3,10 +3,12 @@ stochvolmodels_torch: the PyTorch and CUDA port of stochvolmodels_tpu.
 
 It imports torch, numpy and scipy only — never jax and nothing of the JAX
 package, which stays beside it as the reference the port is tested against.
-This slice serves pricing requests for the flagship LogSV model: analytic
-chain prices through the affine-expansion Fourier engine, BSM implied vols,
-and Monte Carlo through a hand-written CUDA kernel on NVIDIA Hopper.
-Every pricer takes its device explicitly (``LogSVPricer(device="cuda")``).
+It serves pricing requests for the flagship LogSV model (analytic chain
+prices through the affine-expansion Fourier engine, BSM implied vols, Monte
+Carlo, and the rough lift's Monte Carlo) and for Heston (closed-form Fourier
+prices and Monte Carlo).  Every Monte-Carlo path loop runs in a hand-written
+CUDA kernel on NVIDIA Hopper.  Every pricer takes its device explicitly
+(``LogSVPricer(device="cuda")``).
 """
 from stochvolmodels_torch.config import (  # noqa: F401
     OPTION_CODES,
@@ -17,7 +19,20 @@ from stochvolmodels_torch.config import (  # noqa: F401
 )
 from stochvolmodels_torch.data.option_chain import ChainGrid, OptionChain, OptionSlice  # noqa: F401
 from stochvolmodels_torch.data.sample_chains import get_btc_test_chain_data  # noqa: F401
-from stochvolmodels_torch.interop import chain_from_numpy, params_from_numpy  # noqa: F401
+from stochvolmodels_torch.interop import (  # noqa: F401
+    chain_from_numpy,
+    heston_params_from_numpy,
+    params_from_numpy,
+)
+from stochvolmodels_torch.models.heston import (  # noqa: F401
+    BTC_HESTON_PARAMS,
+    HestonParams,
+    HestonPricer,
+    compute_heston_mgf_grid,
+    heston_chain_price_grid,
+    heston_mc_chain_pricer,
+    simulate_heston_terminal,
+)
 from stochvolmodels_torch.models.logsv.affine import (  # noqa: F401
     ExpansionOrder,
     func_a_ode_quadratic_terms,
@@ -35,6 +50,12 @@ from stochvolmodels_torch.models.logsv.pricer import (  # noqa: F401
     simulate_logsv_terminal,
 )
 from stochvolmodels_torch.models.model_pricer import ModelParams, ModelPricer  # noqa: F401
+from stochvolmodels_torch.models.rough.kernel import european_rule  # noqa: F401
+from stochvolmodels_torch.models.rough.simulation import (  # noqa: F401
+    log_spot_full_combined,
+    rough_logsv_mc_chain_pricer,
+    strang_step,
+)
 from stochvolmodels_torch.ops.bsm import (  # noqa: F401
     compute_bsm_vanilla_price,
     compute_bsm_vanilla_vega,
@@ -43,9 +64,15 @@ from stochvolmodels_torch.ops.bsm import (  # noqa: F401
 )
 from stochvolmodels_torch.ops.cuda_mc import (  # noqa: F401
     engine_setup,
+    simulate_heston_terminal_cuda,
+    simulate_heston_terminal_kernel,
+    simulate_heston_terminal_torch,
     simulate_logsv_terminal_cuda,
     simulate_logsv_terminal_kernel,
     simulate_logsv_terminal_torch,
+    simulate_rough_terminal_cuda,
+    simulate_rough_terminal_kernel,
+    simulate_rough_terminal_torch,
 )
 from stochvolmodels_torch.ops.gauss import erfcc, ncdf, npdf  # noqa: F401
 from stochvolmodels_torch.ops.mgf import (  # noqa: F401

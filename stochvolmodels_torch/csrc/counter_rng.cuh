@@ -1,0 +1,84 @@
+// Device helpers shared by the Monte-Carlo kernels: the counter-hash random
+// stream of the TPU kernels' interpret mode and its sign-bit Box-Muller.
+//
+// Counterpart of `_hash_u32`, `_counter_bits`, `_uniform_from_bits`,
+// `_poly_log`, `_poly_cospi` and `_box_muller(poly_bm=True)` of
+// stochvolmodels_tpu/ops/pallas_mc.py.  The plain PyTorch versions of the
+// same functions are in stochvolmodels_torch/ops/cuda_mc.py.
+//
+// Path p of a launch draws what the TPU kernel draws for program
+// `seed + (p >> 15)` at in-block index `p & 32767` (one (256 x 128)-path
+// block per TPU program), whatever the CUDA launch geometry.  Step `step`
+// draws from streams 0 and 1 with the step index as its salt.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace svt {
+
+__device__ __forceinline__ uint32_t hash_u32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  return x ^ (x >> 16);
+}
+
+__device__ __forceinline__ float uniform_from_bits(uint32_t bits) {
+  const float f = __uint_as_float((bits >> 9) | 0x3F800000u);
+  return fmaxf(f - 1.0f, 1.1754944e-38f);  // keep log(u) finite
+}
+
+// ln(u) for u in (0, 1): exponent extraction and a degree-6 polynomial in the
+// mantissa; `c` holds the 7 coefficients, highest degree first
+__device__ __forceinline__ float poly_log(float u, const float* c) {
+  const int bits = __float_as_int(u);
+  const int e = (bits >> 23) - 127;
+  const float f = __int_as_float((bits & 0x007FFFFF) | 0x3F800000) - 1.0f;
+  float p = c[0];
+#pragma unroll
+  for (int k = 1; k < 7; ++k) p = p * f + c[k];
+  return static_cast<float>(e) * 0.6931471805599453f + f * p;
+}
+
+// cos(pi u) for u in [0, 1) via the odd sin minimax on [-pi/2, pi/2)
+__device__ __forceinline__ float poly_cospi(float u) {
+  const float x = (2.0f * u - 1.0f) * 1.5707963267948966f;
+  const float x2 = x * x;
+  const float s = x * (1.0f + x2 * (-0.16666658f + x2 * (0.008332824f + x2 * (
+      -0.00019810997f + x2 * 2.7525562e-06f))));
+  return -s;
+}
+
+// the random stream of one path
+struct PathCounter {
+  uint32_t idx;        // in-block path index, p & 32767
+  uint32_t seed_term;  // (seed + (p >> 15)) * 0x9E3779B9
+};
+
+__device__ __forceinline__ PathCounter path_counter(uint32_t seed, long long p) {
+  return {static_cast<uint32_t>(p & 32767),
+          (seed + static_cast<uint32_t>(p >> 15)) * 0x9E3779B9u};
+}
+
+// the two standard normals of step `step`: r cos and the sign-bit r sin
+__device__ __forceinline__ void normal_pair(const PathCounter& pc, int step,
+                                            const float* log_c, float& z0, float& z1) {
+  const uint32_t base = pc.seed_term + static_cast<uint32_t>(step) * 0x7FEB352Du;
+  const uint32_t b1 = hash_u32(pc.idx ^ hash_u32(base));                // stream 0
+  const uint32_t b2 = hash_u32(pc.idx ^ hash_u32(base + 0x846CA68Bu));  // stream 1
+  const float r = sqrtf(fmaxf(-2.0f * poly_log(uniform_from_bits(b1), log_c), 0.0f));
+  const float c = poly_cospi(uniform_from_bits(b2));
+  const float sign = (b2 & 1u) == 0u ? 1.0f : -1.0f;
+  const float s = sign * sqrtf(fmaxf(1.0f - c * c, 0.0f));
+  z0 = r * c;
+  z1 = r * s;
+}
+
+// max(x, lo) that keeps a NaN x, as jnp.maximum and torch.clamp do
+__device__ __forceinline__ float max_keep_nan(float x, float lo) {
+  return (x >= lo || isnan(x)) ? x : lo;
+}
+
+}  // namespace svt

@@ -13,7 +13,7 @@
 //   * murmur3 finalizer bits -> mantissa-bitcast uniforms -> polynomial ln
 //     (coefficients passed in from the Python side, where numpy fits them
 //     exactly as the JAX package does) and polynomial cos(pi u) -> sign-bit
-//     Box-Muller;
+//     Box-Muller, all in counter_rng.cuh;
 //   * the drift of ln sigma uses an exact 1/sigma (the TPU kernel's
 //     approximate reciprocal is not reproduced).
 //
@@ -36,6 +36,8 @@
 #include <cstring>
 #include <cuda_runtime.h>
 
+#include "counter_rng.cuh"
+
 namespace {
 
 struct LogSvArgs {
@@ -53,37 +55,6 @@ struct LogSvArgs {
 };
 static_assert(sizeof(LogSvArgs) == 17 * sizeof(float), "LogSvArgs layout");
 
-__device__ __forceinline__ uint32_t hash_u32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  return x ^ (x >> 16);
-}
-
-__device__ __forceinline__ float uniform_from_bits(uint32_t bits) {
-  const float f = __uint_as_float((bits >> 9) | 0x3F800000u);
-  return fmaxf(f - 1.0f, 1.1754944e-38f);  // keep log(u) finite
-}
-
-__device__ __forceinline__ float poly_log(float u, const float* c) {
-  const int bits = __float_as_int(u);
-  const int e = (bits >> 23) - 127;
-  const float f = __int_as_float((bits & 0x007FFFFF) | 0x3F800000) - 1.0f;
-  float p = c[0];
-#pragma unroll
-  for (int k = 1; k < 7; ++k) p = p * f + c[k];
-  return static_cast<float>(e) * 0.6931471805599453f + f * p;
-}
-
-__device__ __forceinline__ float poly_cospi(float u) {
-  const float x = (2.0f * u - 1.0f) * 1.5707963267948966f;
-  const float x2 = x * x;
-  const float s = x * (1.0f + x2 * (-0.16666658f + x2 * (0.008332824f + x2 * (
-      -0.00019810997f + x2 * 2.7525562e-06f))));
-  return -s;
-}
-
 __global__ void __launch_bounds__(256)
 logsv_mc_kernel(const float* __restrict__ x0, const float* __restrict__ lns0,
                 const float* __restrict__ qv0, float* __restrict__ x_out,
@@ -91,8 +62,7 @@ logsv_mc_kernel(const float* __restrict__ x0, const float* __restrict__ lns0,
                 long long nb_path, uint32_t seed, int nb_steps, LogSvArgs a) {
   const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (p >= nb_path) return;
-  const uint32_t idx = static_cast<uint32_t>(p & 32767);
-  const uint32_t seed_term = (seed + static_cast<uint32_t>(p >> 15)) * 0x9E3779B9u;
+  const svt::PathCounter pc = svt::path_counter(seed, p);
   const float vartheta2 = a.beta * a.beta + a.volvol * a.volvol;
   const float eta2 = a.eta * a.eta;
   const float alpha_half = a.alpha * 0.5f;
@@ -106,15 +76,10 @@ logsv_mc_kernel(const float* __restrict__ x0, const float* __restrict__ lns0,
   float qvar = qv0[p];
   float sigma = expf(lns);
   for (int step = 0; step < nb_steps; ++step) {
-    const uint32_t base = seed_term + static_cast<uint32_t>(step) * 0x7FEB352Du;
-    const uint32_t b1 = hash_u32(idx ^ hash_u32(base));                // stream 0
-    const uint32_t b2 = hash_u32(idx ^ hash_u32(base + 0x846CA68Bu));  // stream 1
-    const float r = sqrtf(fmaxf(-2.0f * poly_log(uniform_from_bits(b1), log_c), 0.0f));
-    const float c = poly_cospi(uniform_from_bits(b2));
-    const float sign = (b2 & 1u) == 0u ? 1.0f : -1.0f;
-    const float s = sign * sqrtf(fmaxf(1.0f - c * c, 0.0f));
-    const float w0 = r * c * a.sdt;
-    const float w1 = r * s * a.sdt;
+    float z0, z1;
+    svt::normal_pair(pc, step, log_c, z0, z1);
+    const float w0 = z0 * a.sdt;
+    const float w1 = z1 * a.sdt;
     const float sig2dt = eta2 * sigma * sigma * a.dt;
     x = x + alpha_half * sig2dt + a.eta * sigma * w0;
     lns = lns + ((k1theta * (1.0f / sigma) - a.kappa1) + a.kappa2 * (a.theta - sigma)

@@ -2,8 +2,8 @@
 Carry state over from the JAX package, through plain numpy and floats only.
 
 Nothing here imports the JAX package: callers hand over what its objects hold
-(``LogSvParams.to_dict()``, the ragged arrays of an ``OptionChain``), so the
-same state can be fed to both packages.
+(``LogSvParams.to_dict()``, ``HestonParams.to_dict()``, the ragged arrays of
+an ``OptionChain``), so the same state can be fed to both packages.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Any, Mapping, Optional, Sequence
 import numpy as np
 
 from stochvolmodels_torch.data.option_chain import OptionChain
+from stochvolmodels_torch.models.heston import HestonParams
 from stochvolmodels_torch.models.logsv.params import LogSvParams
 
 
@@ -33,6 +34,15 @@ def params_from_numpy(d: Mapping[str, Any]) -> LogSvParams:
                        beta=float(d["beta"]), volvol=float(d["volvol"]),
                        vol_backbone=backbone, H=float(d.get("H", 0.5)),
                        weights=optional("weights"), nodes=optional("nodes"))
+
+
+def heston_params_from_numpy(d) -> HestonParams:
+    """HestonParams from the JAX package's ``HestonParams.to_dict()`` or from
+    its ``to_array()``, [v0, theta, kappa, rho, volvol]."""
+    if isinstance(d, Mapping):
+        return HestonParams(**{k: float(d[k]) for k in ("v0", "theta", "kappa", "rho", "volvol")})
+    v0, theta, kappa, rho, volvol = (float(v) for v in np.asarray(d, dtype=float).ravel())
+    return HestonParams(v0=v0, theta=theta, kappa=kappa, rho=rho, volvol=volvol)
 
 
 def chain_from_numpy(ttms: Sequence[float],

@@ -39,6 +39,18 @@ class LogSvParams(ModelParams):
         if not 1e-4 < self.H <= 0.5:
             raise ValueError(f"H must lie in (1e-4, 0.5], got {self.H}")
 
+    def approximate_kernel(self, T: float) -> None:
+        """set the Markovian rough-kernel nodes and weights: 1 node (the
+        degenerate lift of the standard dynamics) for H in (0.49, 0.5], 2 for
+        H in (0.4, 0.49], 3 below, by the European quadrature rule on [0, T]."""
+        if 0.49 < self.H <= 0.5:
+            self.weights = np.array([1.0])
+            self.nodes = np.array([1e-3])
+            return
+        n = 2 if 0.4 < self.H <= 0.49 else 3
+        from stochvolmodels_torch.models.rough.kernel import european_rule
+        self.nodes, self.weights = european_rule(self.H, n, T)
+
     def to_dict(self) -> Dict[str, Any]:
         return asdict(self)
 

@@ -7,8 +7,9 @@ serving path.  Vanillas are valued by Fourier inversion of the affine
 expansion (a float64 RK4 over the whole transform grid, with the ODE state
 chained across maturities); Monte Carlo runs the Eq. (3.59) Euler scheme,
 either eagerly in float64 (``engine='scan'``) or through the hand-written
-CUDA kernel and its plain version (``engine='cuda'``).  Calibration is not
-ported yet.
+CUDA kernel and its plain version (``engine='cuda'``); the rough lift
+(``use_rough_mc=True``) runs through ``models/rough/simulation.py``.
+Calibration is not ported yet.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from stochvolmodels_torch.models.logsv import affine as afe
 from stochvolmodels_torch.models.logsv.affine import ExpansionOrder
 from stochvolmodels_torch.models.logsv.params import LogSvParams
 from stochvolmodels_torch.models.model_pricer import ModelPricer
+from stochvolmodels_torch.models.rough.simulation import rough_logsv_mc_chain_pricer
 from stochvolmodels_torch.ops import mgf
 from stochvolmodels_torch.ops.cuda_mc import engine_setup, simulate_logsv_terminal_kernel
 from stochvolmodels_torch.ops.payoffs import compute_mc_vars_payoff
@@ -272,11 +274,27 @@ class LogSVPricer(ModelPricer):
         """MC chain prices and standard errors on the pricer's device.
 
         ``nb_steps`` is the steps-per-year of the Euler grid; its default is
-        ``int(360 * max ttm) + 1``, as in the JAX package.  Antithetic
-        draws and the rough-kernel MC are not ported and raise.
+        ``int(360 * max ttm) + 1``, as in the JAX package.
+        ``use_rough_mc=True`` runs the rough lift of ``params.nodes`` and
+        ``params.weights`` (set them with ``params.approximate_kernel(T)``)
+        through :func:`rough_logsv_mc_chain_pricer` at ``nb_steps or 360``
+        steps per year.  Antithetic draws are not ported and raise.
         """
-        if kwargs.get("antithetic") or kwargs.get("use_rough_mc"):
-            raise NotImplementedError("antithetic and rough-kernel MC are not ported")
+        if kwargs.get("antithetic"):
+            raise NotImplementedError("antithetic LogSV MC is not ported")
+        if kwargs.get("use_rough_mc"):
+            if params.nodes is None or params.weights is None:
+                raise ValueError("the rough MC needs params.nodes and params.weights: "
+                                 "call params.approximate_kernel(T) first")
+            return rough_logsv_mc_chain_pricer(
+                ttms=option_chain.ttms, forwards=option_chain.forwards,
+                discfactors=option_chain.discfactors, strikes_ttms=option_chain.strikes_ttms,
+                optiontypes_ttms=option_chain.optiontypes_ttms, sigma0=params.sigma0,
+                theta=params.theta, kappa1=params.kappa1, kappa2=params.kappa2,
+                beta=params.beta, volvol=params.volvol, weights=params.weights,
+                nodes=params.nodes, nb_path=nb_path, nb_steps_per_year=nb_steps or 360,
+                variable_type=variable_type, seed=seed, engine=kwargs.get("engine", "scan"),
+                device=self.device)
         return logsv_mc_chain_pricer(
             v0=params.sigma0, theta=params.theta, kappa1=params.kappa1,
             kappa2=params.kappa2, beta=params.beta, volvol=params.volvol,

@@ -1,0 +1,199 @@
+"""
+Strang-splitting simulation of the rough LogSV model via its Markovian lift.
+
+PyTorch counterpart of ``stochvolmodels_tpu/models/rough/simulation.py`` for
+the RK4 drift scheme.  The lifted volatility is sigma = sum_i w_i v_i over N
+factors; each time step composes a half-step RK4 drift solve, an exact
+log-normal diffusion step on the weighted sum and another half drift step,
+followed by the log-spot reconstruction.  Factor panels are (n, nb_path)
+tensors.  The ``'scan'`` engine runs the steps eagerly in float64 with
+normals from a ``torch.Generator``; the ``'cuda'`` engine runs them in the
+hand-written CUDA kernel ``csrc/rough_mc.cu`` (its plain version on the
+CPU).  The exact-linear ``'expm'`` drift scheme and the fixed-randoms
+variant are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from stochvolmodels_torch.config import VariableType
+from stochvolmodels_torch.ops.cuda_mc import ROUGH_VOL_FLOOR as VOL_FLOOR
+from stochvolmodels_torch.ops.cuda_mc import engine_setup, simulate_rough_terminal_kernel
+from stochvolmodels_torch.ops.payoffs import compute_mc_vars_payoff
+from stochvolmodels_torch.ops.random import generator_from_seed, step_normals
+from stochvolmodels_torch.utils.funcs import set_time_grid
+
+
+def drift_ode_rk4(nodes: torch.Tensor, v0: torch.Tensor, theta, kappa1, kappa2,
+                  z0: torch.Tensor, weights: torch.Tensor, h) -> torch.Tensor:
+    """RK4 on the lifted drift ODE dz_i = -x_i (z_i - v0_i) + g(w.z) with
+    g(s) = (kappa1 + kappa2 s)(theta - s); panels are (n, nb_path) or
+    broadcast to it."""
+    def rhs(z):
+        zw = torch.sum(weights * z, dim=0)
+        g = (kappa1 + kappa2 * zw) * (theta - zw)
+        return -nodes * (z - v0) + g
+
+    s1 = rhs(z0)
+    s2 = rhs(z0 + 0.5 * h * s1)
+    s3 = rhs(z0 + 0.5 * h * s2)
+    s4 = rhs(z0 + h * s3)
+    return z0 + (h / 6.0) * (s1 + 2.0 * s2 + 2.0 * s3 + s4)
+
+
+def diffus_sde_exact(y0: torch.Tensor, weights: torch.Tensor, volvol, h,
+                     z_rand: torch.Tensor) -> torch.Tensor:
+    """exact log-normal diffusion step on the weighted sum, with the increment
+    distributed equally across factors."""
+    weight_sum = torch.sum(weights, dim=0)
+    volvol_ = volvol * weight_sum
+    yw = torch.sum(weights * y0, dim=0)
+    dw = z_rand * float(np.sqrt(h))
+    y_h = yw * torch.exp(-0.5 * volvol_ * volvol_ * h + volvol_ * dw)
+    q = (y_h - yw) / weight_sum
+    return y0 + q[None, :]
+
+
+def strang_step(nodes: torch.Tensor, weights: torch.Tensor, v0: torch.Tensor,
+                theta, kappa1, kappa2, rho, volvol,
+                log_s: torch.Tensor, v: torch.Tensor, y: torch.Tensor, h,
+                z0: torch.Tensor, z1: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """one full step D(h/2) o S(h) o D(h/2) and the log-spot reconstruction;
+    returns (vol_h, y_h, log_spot_h)."""
+    d_inn = drift_ode_rk4(nodes, v0, theta, kappa1, kappa2, v, weights, 0.5 * h)
+    s_inn = diffus_sde_exact(d_inn, weights, volvol, h, z0)
+    vol_h = drift_ode_rk4(nodes, v0, theta, kappa1, kappa2, s_inn, weights, 0.5 * h)
+
+    w_vol_h = torch.sum(weights * vol_h, dim=0)
+    bad = torch.isnan(w_vol_h) | (w_vol_h <= 0.0)
+    vol_h = torch.where(bad[None, :], VOL_FLOOR, vol_h)
+
+    wlam = weights * nodes
+    vw = torch.sum(weights * v, dim=0)
+    volw_h = torch.sum(weights * vol_h, dim=0)
+    w_inv = 1.0 / torch.sum(weights, dim=0)
+
+    c1 = c2 = 0.5
+    rho_comp = float(np.sqrt(1.0 - rho * rho))
+    sq_vw = torch.square(vw)
+    sq_vhw = torch.square(volw_h)
+    w_lam_vol = torch.sum(wlam * v, dim=0)
+    w_lam_vol_h = torch.sum(wlam * vol_h, dim=0)
+    w_lam_v0 = torch.sum(wlam * v0, dim=0)
+
+    term1 = (1.0 / volvol) * (
+        ((volw_h - vw) / h + c1 * w_lam_vol + c2 * w_lam_vol_h - w_lam_v0) * w_inv
+        - kappa1 * theta + (kappa1 - kappa2 * theta) * (c1 * vw + c2 * volw_h)
+        + kappa2 * (c1 * sq_vw + c2 * sq_vhw)) * h
+    term2 = c1 * h * sq_vw + c2 * h * sq_vhw
+    log_spot_h = log_s - 0.5 * term2 + rho * term1 + rho_comp * torch.sqrt(term2) * z1
+    y_h = y + 0.5 * h * (vw * vw + volw_h * volw_h)
+    return vol_h, y_h, log_spot_h
+
+
+def log_spot_full_combined(nodes: np.ndarray,
+                           weights: np.ndarray,
+                           sigma0: float,
+                           theta: float,
+                           kappa1: float,
+                           kappa2: float,
+                           rho: float,
+                           volvol: float,
+                           ttm: float,
+                           nb_path: int,
+                           gen: torch.Generator,
+                           nb_steps_per_year: int = 360,
+                           dtype: torch.dtype = torch.float64
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """simulate (log-spot, factor vols, integrated variance) to the horizon,
+    one eager Strang step at a time on the generator's device, with each
+    step's two normal panels drawn from ``gen``."""
+    device = gen.device
+    n = len(nodes)
+    nb_steps, dt, _ = set_time_grid(ttm=ttm, nb_steps_per_year=nb_steps_per_year)
+    nodes_t = torch.as_tensor(np.asarray(nodes, dtype=np.float64), dtype=dtype,
+                              device=device)[:, None]
+    weights_t = torch.as_tensor(np.asarray(weights, dtype=np.float64), dtype=dtype,
+                                device=device)[:, None]
+    v0 = torch.full((n, nb_path), 1.0, dtype=dtype, device=device) \
+        * (float(sigma0) / torch.sum(weights_t))
+    v = v0
+    y = torch.zeros(nb_path, dtype=dtype, device=device)
+    log_s = torch.zeros(nb_path, dtype=dtype, device=device)
+    for _ in range(nb_steps):
+        z = step_normals(gen, (2, nb_path), dtype=dtype)
+        v, y, log_s = strang_step(nodes_t, weights_t, v0, theta, kappa1, kappa2, rho, volvol,
+                                  log_s, v, y, dt, z[0], z[1])
+    return log_s, v, y
+
+
+def rough_logsv_mc_chain_pricer(ttms: np.ndarray,
+                                forwards: np.ndarray,
+                                discfactors: np.ndarray,
+                                strikes_ttms,
+                                optiontypes_ttms,
+                                sigma0: float,
+                                theta: float,
+                                kappa1: float,
+                                kappa2: float,
+                                beta: float,
+                                volvol: float,
+                                weights: np.ndarray,
+                                nodes: np.ndarray,
+                                nb_path: int = 100000,
+                                nb_steps_per_year: int = 360,
+                                variable_type: VariableType = VariableType.LOG_RETURN,
+                                seed: Optional[int] = None,
+                                dtype: torch.dtype = torch.float64,
+                                engine: str = "scan",
+                                device="cpu"
+                                ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """rough chain MC: (beta, volvol) is reparametrized to (vartheta,
+    rho = beta / vartheta), and every slice restarts from t = 0 on the same
+    random stream, so a short slice sees a prefix of a long slice's
+    increments.
+
+    ``engine='cuda'`` (alias ``'pallas'``) runs each slice in float32 through
+    the hand-written CUDA kernel on a CUDA ``device`` (its plain version on
+    the CPU), every slice with the same base seed: one launch per maturity,
+    simulating the sum of the slice horizons.  ``engine='scan'`` (default)
+    runs the float64 eager engine with a generator reseeded by ``seed`` for
+    each slice.
+    """
+    if engine == "pallas":
+        engine = "cuda"
+    if engine not in ("scan", "cuda"):
+        raise NotImplementedError(f"engine={engine}")
+    device = torch.device(device)
+    vartheta = float(np.sqrt(beta ** 2 + volvol ** 2))
+    rho = float(beta / vartheta)
+    if engine == "cuda":
+        nb_pad, base_seed = engine_setup(seed, nb_path)
+    weights_t = torch.as_tensor(np.asarray(weights, dtype=np.float64), dtype=dtype,
+                                device=device)[:, None]
+    option_prices_ttm, option_std_ttm = [], []
+    for ttm, forward, discfactor, strikes, types in zip(ttms, forwards, discfactors,
+                                                        strikes_ttms, optiontypes_ttms):
+        kw = dict(sigma0=sigma0, theta=theta, kappa1=kappa1, kappa2=kappa2, rho=rho,
+                  volvol=vartheta, nodes=nodes, weights=weights, ttm=float(ttm),
+                  nb_steps_per_year=nb_steps_per_year)
+        if engine == "cuda":
+            log_s, sigma_terminal, y = simulate_rough_terminal_kernel(
+                seed=base_seed, nb_path=nb_pad, device=device, **kw)
+            log_s, sigma_terminal, y = log_s[:nb_path], sigma_terminal[:nb_path], y[:nb_path]
+        else:
+            log_s, v, y = log_spot_full_combined(
+                nb_path=nb_path, gen=generator_from_seed(seed, device=device), dtype=dtype,
+                **kw)
+            sigma_terminal = torch.sum(weights_t * v, dim=0)
+        prices, stds = compute_mc_vars_payoff(
+            x0=log_s, sigma0=sigma_terminal, qvar0=y, ttm=ttm, forward=forward,
+            strikes_ttm=strikes, optiontypes_ttm=types, discfactor=discfactor,
+            variable_type=variable_type)
+        option_prices_ttm.append(prices)
+        option_std_ttm.append(stds)
+    return option_prices_ttm, option_std_ttm

@@ -3,10 +3,11 @@ Build and load the hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C entry point, loaded with ``ctypes``.  The build happens at first use,
-from the sources in the package only, into ``_build/<hash>/`` beside the
-package (listed in ``.gitignore``), keyed by a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one loads.  A missing
-``nvcc`` or a failed build raises.
+from the sources in the package only, into ``_build/<digest>/`` beside the
+package (listed in ``.gitignore``).  The digest (:func:`source_digest`) covers
+the ``.cu`` file, every ``csrc/*.cuh`` header it may include and the flags,
+so an edited source or header rebuilds and an unchanged one loads.  A
+missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, Tuple
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -50,28 +51,62 @@ def find_nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
+def source_digest(name: str) -> str:
+    """build key of ``csrc/<name>.cu``: its bytes, the name and bytes of every
+    ``csrc/*.cuh`` header, and the nvcc flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / source_digest(name) / f"lib{name}.so"
+
+
+def _start_build(name: str, nvcc: str, lib_path: Path) -> Tuple[subprocess.Popen, Path, float]:
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    tmp_path = lib_path.with_name(f"lib{name}.{os.getpid()}.tmp.so")
+    proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp_path), str(CSRC_DIR / f"{name}.cu")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp_path, time.perf_counter()
+
+
+def _finish_build(name: str, job: Tuple[subprocess.Popen, Path, float], lib_path: Path) -> str:
+    """wait for one nvcc; returns its failure message, or "" once the library
+    is in place."""
+    proc, tmp_path, t0 = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        return f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{log}"
+    os.replace(tmp_path, lib_path)
+    BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "log": log.strip()}
+    return ""
+
+
+def load_libraries(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
+    """build every library of ``names`` that is not built yet, one nvcc per
+    source, all started together, then load them all.  Every nvcc is waited
+    for before a failure raises."""
+    names = list(names)
+    paths = {name: _lib_path(name) for name in names if name not in _LIBS}
+    missing = [name for name, path in paths.items() if not path.is_file()]
+    jobs = {}
+    if missing:
+        nvcc = find_nvcc()
+        jobs = {name: _start_build(name, nvcc, paths[name]) for name in missing}
+    failures = [msg for msg in (_finish_build(name, job, paths[name])
+                                for name, job in jobs.items()) if msg]
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    for name, path in paths.items():
+        BUILD_INFO.setdefault(name, {})
+        _LIBS[name] = ctypes.CDLL(str(path))
+    return {name: _LIBS[name] for name in names}
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """build (if needed) and load ``csrc/<name>.cu`` as a ctypes library."""
-    if name in _LIBS:
-        return _LIBS[name]
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = BUILD_DIR / digest
-    lib_path = out_dir / f"lib{name}.so"
-    if not lib_path.is_file():
-        nvcc = find_nvcc()
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp_path = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp_path), str(src)],
-                              capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp_path, lib_path)
-        BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
-                            "log": (proc.stdout + proc.stderr).strip()}
-    else:
-        BUILD_INFO[name] = {}
-    _LIBS[name] = ctypes.CDLL(str(lib_path))
-    return _LIBS[name]
+    return load_libraries([name])[name]

@@ -1,21 +1,23 @@
 """
-The LogSV Monte-Carlo path loop: a hand-written CUDA kernel and its plain
-PyTorch version.
+The Monte-Carlo path loops: hand-written CUDA kernels and their plain
+PyTorch versions.
 
-Counterpart of ``stochvolmodels_tpu/ops/pallas_mc.py`` for ``_logsv_kernel``.
-The whole simulation of a path runs inside one CUDA thread
-(``csrc/logsv_mc.cu``): the normals come from the murmur3 counter hash over
-(program seed, step, stream, in-block path index) that the TPU kernel uses in
-interpret mode, the state stays in registers, and only the terminal
-(x, sigma, qvar) is written back.
+Counterpart of ``stochvolmodels_tpu/ops/pallas_mc.py`` for ``_logsv_kernel``
+(``csrc/logsv_mc.cu``), ``_heston_kernel`` (``csrc/heston_mc.cu``) and
+``_rough_kernel`` (``csrc/rough_mc.cu``).  The whole simulation of a path runs
+inside one CUDA thread: the normals come from the murmur3 counter hash over
+(program seed, step, stream, in-block path index) that the TPU kernels use in
+interpret mode (``csrc/counter_rng.cuh``), the state stays in registers, and
+only the terminal state is written back.  For each model:
 
-* :func:`simulate_logsv_terminal_cuda` launches the kernel; CUDA float32
-  tensors only, it raises on anything else.
-* :func:`simulate_logsv_terminal_torch` is the plain version: the same hash,
-  uniforms, polynomials and Euler step on whole tensors, in int64 and
-  float32, on any device.
-* :func:`simulate_logsv_terminal_kernel` is what the chain pricer calls: CUDA
-  tensors go to the kernel, CPU tensors to the plain version.
+* ``simulate_<model>_terminal_cuda`` launches the kernel; CUDA float32
+  tensors only, it raises on anything else, and its ``.launches`` counts
+  launches;
+* ``simulate_<model>_terminal_torch`` is the plain version: the same hash,
+  uniforms, polynomials and float32 step on whole tensors, operation for
+  operation, on any device;
+* ``simulate_<model>_terminal_kernel`` is what the chain pricers call: CUDA
+  runs the kernel, the CPU the plain version.
 """
 from __future__ import annotations
 
@@ -101,6 +103,30 @@ def poly_cospi(u: torch.Tensor) -> torch.Tensor:
     return -s
 
 
+class _PathNormals:
+    """the two standard normals per step of every path, as the kernels draw
+    them: path p takes TPU program seed ``seed + (p >> 15)`` and in-block
+    index ``p & 32767``; step ``step`` salts streams 0 and 1; sign-bit
+    Box-Muller with the polynomial ln and cos(pi u)."""
+
+    def __init__(self, seed: int, nb_path: int, device):
+        p = torch.arange(nb_path, dtype=torch.int64, device=device)
+        self.idx = p & (BLOCK_PATHS - 1)
+        self.block = p >> 15
+        nb_blocks = (nb_path + BLOCK_PATHS - 1) // BLOCK_PATHS
+        self.block_seeds = int(seed) + torch.arange(nb_blocks, dtype=torch.int64, device=device)
+
+    def step(self, step: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        # one key per TPU block, gathered to its paths
+        b1 = hash_u32(self.idx ^ _counter_key(self.block_seeds, step, 0)[self.block])
+        b2 = hash_u32(self.idx ^ _counter_key(self.block_seeds, step, 1)[self.block])
+        r = torch.sqrt(torch.clamp(-2.0 * poly_log(uniform_from_bits(b1)), min=0.0))
+        c = poly_cospi(uniform_from_bits(b2))
+        sign = torch.where((b2 & 1) == 0, 1.0, -1.0).to(torch.float32)
+        sn = sign * torch.sqrt(torch.clamp(1.0 - c * c, min=0.0))
+        return r * c, r * sn
+
+
 class _EulerScalars(NamedTuple):
     """float32 scalars of the Euler step (stored as Python floats that are
     exactly float32), rounded from float64 as the TPU kernel's wrapper does."""
@@ -134,12 +160,23 @@ def _check_paths(x0: torch.Tensor, sigma0: torch.Tensor, qvar0: torch.Tensor) ->
         if t.dim() != 1 or t.shape[0] != nb_path:
             raise ValueError("x0, sigma0 and qvar0 must be 1-D of one length")
         if t.dtype != torch.float32:
-            raise TypeError(f"the LogSV MC kernel takes float32 state, got {t.dtype}")
+            raise TypeError(f"the MC kernels take float32 state, got {t.dtype}")
         if t.device != x0.device:
             raise ValueError("x0, sigma0 and qvar0 must be on one device")
-    if nb_path == 0 or nb_path % LANES:
+    return _check_nb_path(nb_path)
+
+
+def _check_nb_path(nb_path: int) -> int:
+    if nb_path <= 0 or nb_path % LANES:
         raise ValueError(f"nb_path must be a positive multiple of {LANES}, got {nb_path}")
     return nb_path
+
+
+def _check_cuda_state(*state: torch.Tensor) -> None:
+    if state[0].device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {state[0].device}")
+    if not all(t.is_contiguous() for t in state):
+        raise ValueError("the state tensors must be contiguous")
 
 
 def simulate_logsv_terminal_torch(seed: int,
@@ -174,26 +211,15 @@ def simulate_logsv_terminal_torch(seed: int,
     alpha_half = float(f32(a.alpha) * f32(0.5))
     k1theta = float(f32(a.kappa1) * f32(a.theta))
 
-    p = torch.arange(nb_path, dtype=torch.int64, device=device)
-    idx = p & (BLOCK_PATHS - 1)
-    block = p >> 15
-    nb_blocks = (nb_path + BLOCK_PATHS - 1) // BLOCK_PATHS
-    block_seeds = int(seed) + torch.arange(nb_blocks, dtype=torch.int64, device=device)
-
+    normals = _PathNormals(seed, nb_path, device)
     x = x0.clone()
     lns = torch.log(sigma0)
     qvar = qvar0.clone()
     sigma = torch.exp(lns)
     for step in range(nb_steps):
-        # one key per TPU block, gathered to its paths
-        b1 = hash_u32(idx ^ _counter_key(block_seeds, step, 0)[block])
-        b2 = hash_u32(idx ^ _counter_key(block_seeds, step, 1)[block])
-        r = torch.sqrt(torch.clamp(-2.0 * poly_log(uniform_from_bits(b1)), min=0.0))
-        c = poly_cospi(uniform_from_bits(b2))
-        sign = torch.where((b2 & 1) == 0, 1.0, -1.0).to(torch.float32)
-        sn = sign * torch.sqrt(torch.clamp(1.0 - c * c, min=0.0))
-        w0 = (r * c) * a.sdt
-        w1 = (r * sn) * a.sdt
+        z0, z1 = normals.step(step)
+        w0 = z0 * a.sdt
+        w1 = z1 * a.sdt
         sig2dt = ((eta2 * sigma) * sigma) * a.dt
         x = (x + alpha_half * sig2dt) + (a.eta * sigma) * w0
         drift = (((k1theta * reciprocal(sigma) - a.kappa1) + a.kappa2 * (a.theta - sigma))
@@ -209,14 +235,27 @@ def simulate_logsv_terminal_torch(seed: int,
 # the CUDA kernel
 # --------------------------------------------------------------------------
 
-def _load_kernel() -> ctypes.CDLL:
-    lib = _build.load_library("logsv_mc")
-    fn = lib.logsv_mc_launch
+# C entry points: (state in, state out, nb_path, seed, nb_steps, host args, stream)
+_STATE_LAUNCH_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_uint32,
+                                                  ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+# rough_mc_launch: (out x3, nb_path, seed, nb_steps, n_nodes, host args, stream)
+_ROUGH_LAUNCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_uint32, ctypes.c_int,
+                                                  ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def _launcher(name: str, argtypes) -> Callable[..., int]:
+    """the C entry point ``<name>_launch`` of ``csrc/<name>.cu``, built and
+    loaded at first use."""
+    fn = getattr(_build.load_library(name), f"{name}_launch")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_uint32,
-                                               ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+    return fn
+
+
+def _raise_on_error(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
 
 
 def simulate_logsv_terminal_cuda(seed: int,
@@ -241,11 +280,8 @@ def simulate_logsv_terminal_cuda(seed: int,
     raises.  ``simulate_logsv_terminal_cuda.launches`` counts launches.
     """
     nb_path = _check_paths(x0, sigma0, qvar0)
-    if x0.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {x0.device}")
-    if not (x0.is_contiguous() and sigma0.is_contiguous() and qvar0.is_contiguous()):
-        raise ValueError("x0, sigma0 and qvar0 must be contiguous")
-    lib = _load_kernel()
+    _check_cuda_state(x0, sigma0, qvar0)
+    launch = _launcher("logsv_mc", _STATE_LAUNCH_ARGTYPES)
     nb_steps, a = _euler_scalars(ttm, theta, kappa1, kappa2, beta, volvol,
                                  vol_backbone_eta, is_spot_measure, nb_steps_per_year)
     host_args = np.concatenate([np.asarray(a, dtype=np.float32), LOG_C])
@@ -253,12 +289,10 @@ def simulate_logsv_terminal_cuda(seed: int,
     x, sig, qvar = (torch.empty_like(x0) for _ in range(3))
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.logsv_mc_launch(x0.data_ptr(), lns0.data_ptr(), qvar0.data_ptr(),
-                                  x.data_ptr(), sig.data_ptr(), qvar.data_ptr(),
-                                  nb_path, int(seed) & _M32, nb_steps,
-                                  host_args.ctypes.data, stream)
-    if err != 0:
-        raise RuntimeError(f"logsv_mc kernel launch failed: cudaError_t {err}")
+        err = launch(x0.data_ptr(), lns0.data_ptr(), qvar0.data_ptr(),
+                     x.data_ptr(), sig.data_ptr(), qvar.data_ptr(),
+                     nb_path, int(seed) & _M32, nb_steps, host_args.ctypes.data, stream)
+    _raise_on_error("logsv_mc", err)
     simulate_logsv_terminal_cuda.launches += 1
     return x, sig, qvar
 
@@ -276,6 +310,311 @@ def simulate_logsv_terminal_kernel(seed: int, x0: torch.Tensor, sigma0: torch.Te
     if x0.device.type == "cpu":
         return simulate_logsv_terminal_torch(seed, x0, sigma0, qvar0, **kwargs)
     raise ValueError(f"no LogSV MC kernel for device {x0.device}")
+
+
+# --------------------------------------------------------------------------
+# Heston: full-truncation Euler (_heston_kernel)
+# --------------------------------------------------------------------------
+
+VAR_FLOOR = 1e-4  # full-truncation floor of the variance
+
+
+def _heston_scalars(ttm, theta, kappa, rho, volvol, nb_steps_per_year) -> Tuple[int, np.ndarray]:
+    """(nb_steps, float32 [dt, sqrt(dt), theta, kappa, rho, volvol]), rounded
+    from float64 as the TPU kernel's wrapper does."""
+    nb_steps, dt, _ = set_time_grid(ttm=ttm, nb_steps_per_year=nb_steps_per_year)
+    return nb_steps, np.array([dt, np.sqrt(dt), theta, kappa, rho, volvol], dtype=np.float32)
+
+
+def simulate_heston_terminal_torch(seed: int,
+                                   x0: torch.Tensor,
+                                   var0: torch.Tensor,
+                                   qvar0: torch.Tensor,
+                                   ttm: float,
+                                   theta: float,
+                                   kappa: float,
+                                   rho: float,
+                                   volvol: float,
+                                   nb_steps_per_year: int = 360
+                                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """terminal (x, var, qvar) under Heston by the plain tensor version of the
+    kernel: the same random stream and float32 step, operation for
+    operation.  rho_1 = sqrt(1 - rho^2) is taken in float32, as the TPU
+    kernel takes it from its float32 parameters."""
+    nb_path = _check_paths(x0, var0, qvar0)
+    nb_steps, a = _heston_scalars(ttm, theta, kappa, rho, volvol, nb_steps_per_year)
+    rho_1 = float(np.sqrt(np.float32(1.0) - a[4] * a[4]))
+    dt, sdt, theta, kappa, rho, volvol = (float(v) for v in a)
+    normals = _PathNormals(seed, nb_path, x0.device)
+    x, var, qvar = x0.clone(), var0.clone(), qvar0.clone()
+    for step in range(nb_steps):
+        z0, z1 = normals.step(step)
+        w0 = z0 * sdt
+        w1 = z1 * sdt
+        sigma = torch.sqrt(var)
+        var_dt = var * dt
+        x = (x - 0.5 * var_dt) + sigma * w0
+        qvar = qvar + var_dt
+        var = (var + (kappa * (theta - var)) * dt) + (sigma * volvol) * (rho * w0 + rho_1 * w1)
+        var = torch.clamp(var, min=VAR_FLOOR)
+    return x, var, qvar
+
+
+def simulate_heston_terminal_cuda(seed: int,
+                                  x0: torch.Tensor,
+                                  var0: torch.Tensor,
+                                  qvar0: torch.Tensor,
+                                  ttm: float,
+                                  theta: float,
+                                  kappa: float,
+                                  rho: float,
+                                  volvol: float,
+                                  nb_steps_per_year: int = 360
+                                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """terminal (x, var, qvar) under Heston by the hand-written CUDA kernel.
+
+    Mirrors ``simulate_heston_terminal_pallas``: (nb_path,) float32,
+    contiguous CUDA tensors, nb_path a multiple of 128.  Launches on the
+    current stream without synchronising; a refused launch raises.
+    ``simulate_heston_terminal_cuda.launches`` counts launches.
+    """
+    nb_path = _check_paths(x0, var0, qvar0)
+    _check_cuda_state(x0, var0, qvar0)
+    launch = _launcher("heston_mc", _STATE_LAUNCH_ARGTYPES)
+    nb_steps, a = _heston_scalars(ttm, theta, kappa, rho, volvol, nb_steps_per_year)
+    host_args = np.concatenate([a, LOG_C])
+    x, var, qvar = (torch.empty_like(x0) for _ in range(3))
+    with torch.cuda.device(x0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(x0.data_ptr(), var0.data_ptr(), qvar0.data_ptr(),
+                     x.data_ptr(), var.data_ptr(), qvar.data_ptr(),
+                     nb_path, int(seed) & _M32, nb_steps, host_args.ctypes.data, stream)
+    _raise_on_error("heston_mc", err)
+    simulate_heston_terminal_cuda.launches += 1
+    return x, var, qvar
+
+
+simulate_heston_terminal_cuda.launches = 0
+
+
+def simulate_heston_terminal_kernel(seed: int, x0: torch.Tensor, var0: torch.Tensor,
+                                    qvar0: torch.Tensor, **kwargs
+                                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """the Heston chain pricer's path loop: CUDA tensors run the CUDA kernel,
+    CPU tensors its plain version.  Nothing else dispatches."""
+    if x0.device.type == "cuda":
+        return simulate_heston_terminal_cuda(seed, x0, var0, qvar0, **kwargs)
+    if x0.device.type == "cpu":
+        return simulate_heston_terminal_torch(seed, x0, var0, qvar0, **kwargs)
+    raise ValueError(f"no Heston MC kernel for device {x0.device}")
+
+
+# --------------------------------------------------------------------------
+# rough LogSV: Strang splitting of the Markovian lift (_rough_kernel)
+# --------------------------------------------------------------------------
+
+MAX_NODES = 5
+ROUGH_VOL_FLOOR = 1e-6  # each factor of a path whose weighted vol is NaN or <= 0
+
+
+class _RoughScalars(NamedTuple):
+    """float32 scalars of the Strang step, as the TPU kernel and
+    ``csrc/rough_mc.cu`` compute them from their float32 parameters."""
+    nodes: Tuple[float, ...]
+    weights: Tuple[float, ...]
+    wl: Tuple[float, ...]        # w_i * x_i
+    hf: float                    # dt
+    h2: float                    # dt / 2
+    h6: float                    # h2 / 6
+    sqh: float                   # sqrt(dt)
+    theta: float
+    kappa1: float
+    kappa2: float
+    rho: float
+    v0f: float                   # sigma0 / sum w, taken in float64
+    rho_comp: float              # sqrt(max(1 - rho^2, 0))
+    volvol_s: float              # volvol * sum w
+    w_inv: float                 # 1 / sum w
+    inv_volvol: float
+    diff_drift: float            # -volvol_s^2 dt / 2
+    w_lam_v0: float              # sum(w_i x_i) v0f
+    k1theta: float
+    k12: float                   # kappa1 - kappa2 theta
+    half_h: float                # dt / 2
+
+
+def _rough_args(ttm, sigma0, theta, kappa1, kappa2, rho, volvol, nodes, weights,
+                nb_steps_per_year) -> Tuple[int, np.ndarray, _RoughScalars]:
+    """(nb_steps, the 26 float32 kernel arguments, the step's scalars)."""
+    nodes = np.asarray(nodes, dtype=np.float64).ravel()
+    weights = np.asarray(weights, dtype=np.float64).ravel()
+    n = len(nodes)
+    if not 1 <= n <= MAX_NODES or len(weights) != n:
+        raise ValueError(f"the rough kernel takes 1..{MAX_NODES} nodes and as many weights, "
+                         f"got {n} and {len(weights)}")
+    nb_steps, dt, _ = set_time_grid(ttm=ttm, nb_steps_per_year=nb_steps_per_year)
+    v0f = float(sigma0) / float(np.sum(weights))
+    head = np.array([dt, 0.5 * dt, np.sqrt(dt), theta, kappa1, kappa2, rho, volvol, v0f],
+                    dtype=np.float32)
+    pad = np.zeros(MAX_NODES - n, dtype=np.float32)
+    x32, w32 = nodes.astype(np.float32), weights.astype(np.float32)
+    host_args = np.concatenate([head, x32, pad, w32, pad, LOG_C])
+
+    f32 = np.float32
+    hf, h2, sqh, theta, kappa1, kappa2, rho, volvol, v0f = head
+    wl = [w * x for w, x in zip(w32, x32)]
+    w_sum, wlam_sum = w32[0], wl[0]
+    for w, l in zip(w32[1:], wl[1:]):
+        w_sum, wlam_sum = w_sum + w, wlam_sum + l
+    volvol_s = volvol * w_sum
+    scalars = _RoughScalars(
+        nodes=tuple(map(float, x32)), weights=tuple(map(float, w32)), wl=tuple(map(float, wl)),
+        hf=float(hf), h2=float(h2), h6=float(h2 / f32(6.0)), sqh=float(sqh),
+        theta=float(theta), kappa1=float(kappa1), kappa2=float(kappa2), rho=float(rho),
+        v0f=float(v0f), rho_comp=float(np.sqrt(max(f32(1.0) - rho * rho, f32(0.0)))),
+        volvol_s=float(volvol_s), w_inv=float(f32(1.0) / w_sum),
+        inv_volvol=float(f32(1.0) / volvol),
+        diff_drift=float(f32(-0.5) * volvol_s * volvol_s * hf),
+        w_lam_v0=float(wlam_sum * v0f), k1theta=float(kappa1 * theta),
+        k12=float(kappa1 - kappa2 * theta), half_h=float(f32(0.5) * hf))
+    return nb_steps, host_args, scalars
+
+
+def _dot(w: Tuple[float, ...], v) -> torch.Tensor:
+    acc = w[0] * v[0]
+    for wi, vi in zip(w[1:], v[1:]):
+        acc = acc + wi * vi
+    return acc
+
+
+def _lift_rk4(v, h: float, h6: float, c: _RoughScalars):
+    """RK4 step of length h of the lifted drift ODE, one tensor per factor."""
+    def rhs(z):
+        zw = _dot(c.weights, z)
+        g = (c.kappa1 + c.kappa2 * zw) * (c.theta - zw)
+        return [-x * (zi - c.v0f) + g for x, zi in zip(c.nodes, z)]
+
+    s1 = rhs(v)
+    s2 = rhs([vi + (0.5 * h) * si for vi, si in zip(v, s1)])
+    s3 = rhs([vi + (0.5 * h) * si for vi, si in zip(v, s2)])
+    s4 = rhs([vi + h * si for vi, si in zip(v, s3)])
+    return [vi + h6 * (((a + 2.0 * b) + 2.0 * cc) + d)
+            for vi, a, b, cc, d in zip(v, s1, s2, s3, s4)]
+
+
+def simulate_rough_terminal_torch(seed: int,
+                                  nb_path: int,
+                                  ttm: float,
+                                  sigma0: float,
+                                  theta: float,
+                                  kappa1: float,
+                                  kappa2: float,
+                                  rho: float,
+                                  volvol: float,
+                                  nodes,
+                                  weights,
+                                  nb_steps_per_year: int = 360,
+                                  device="cpu"
+                                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """terminal (log-spot, weighted vol, integrated var) of the rough LogSV
+    lift by the plain tensor version of the kernel, float32 on ``device``.
+
+    The kernel's operation order, one tensor per factor; the log-spot takes
+    sqrt(max(term2, 0)) as the TPU kernel does (the JAX scan engine takes
+    sqrt(term2)).  The step's divide by dt is a true division on every
+    device (a CUDA tensor divided by a Python scalar would be multiplied by
+    its reciprocal).
+    """
+    _check_nb_path(nb_path)
+    nb_steps, _, c = _rough_args(ttm, sigma0, theta, kappa1, kappa2, rho, volvol,
+                                 nodes, weights, nb_steps_per_year)
+    hf_t = torch.tensor(c.hf, dtype=torch.float32, device=device)
+    normals = _PathNormals(seed, nb_path, device)
+    zero = torch.zeros(nb_path, dtype=torch.float32, device=device)
+    v = [torch.full_like(zero, c.v0f) for _ in c.nodes]
+    log_s, y = zero, zero
+    for step in range(nb_steps):
+        z0, z1 = normals.step(step)
+        d_inn = _lift_rk4(v, c.h2, c.h6, c)
+        yw = _dot(c.weights, d_inn)
+        y_h = yw * torch.exp(c.diff_drift + c.volvol_s * (z0 * c.sqh))
+        q = (y_h - yw) * c.w_inv
+        vol_h = _lift_rk4([d + q for d in d_inn], c.h2, c.h6, c)
+        w_vol_h = _dot(c.weights, vol_h)
+        bad = torch.isnan(w_vol_h) | (w_vol_h <= 0.0)
+        vol_h = [torch.where(bad, ROUGH_VOL_FLOOR, vh) for vh in vol_h]
+
+        vw = _dot(c.weights, v)
+        volw_h = _dot(c.weights, vol_h)
+        sq_vw = vw * vw
+        sq_vhw = volw_h * volw_h
+        w_lam_vol = _dot(c.wl, v)
+        w_lam_vol_h = _dot(c.wl, vol_h)
+        a_term = ((((volw_h - vw) / hf_t + 0.5 * w_lam_vol) + 0.5 * w_lam_vol_h)
+                  - c.w_lam_v0) * c.w_inv
+        inner = (((a_term - c.k1theta) + c.k12 * (0.5 * vw + 0.5 * volw_h))
+                 + c.kappa2 * (0.5 * sq_vw + 0.5 * sq_vhw))
+        term1 = (c.inv_volvol * inner) * c.hf
+        term2 = c.half_h * sq_vw + c.half_h * sq_vhw
+        log_s = ((log_s - 0.5 * term2) + c.rho * term1) \
+            + (c.rho_comp * torch.sqrt(torch.clamp(term2, min=0.0))) * z1
+        y = y + c.half_h * (sq_vw + sq_vhw)
+        v = vol_h
+    return log_s, _dot(c.weights, v), y
+
+
+def simulate_rough_terminal_cuda(seed: int,
+                                 nb_path: int,
+                                 ttm: float,
+                                 sigma0: float,
+                                 theta: float,
+                                 kappa1: float,
+                                 kappa2: float,
+                                 rho: float,
+                                 volvol: float,
+                                 nodes,
+                                 weights,
+                                 nb_steps_per_year: int = 360,
+                                 device="cuda"
+                                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """terminal (log-spot, weighted vol, integrated var) of the rough LogSV
+    lift by the hand-written CUDA kernel, float32 on the CUDA ``device``.
+
+    Mirrors ``simulate_rough_terminal_pallas``: nb_path a multiple of 128,
+    1..5 nodes.  Launches on the current stream without synchronising; a
+    refused launch raises.  ``simulate_rough_terminal_cuda.launches`` counts
+    launches.
+    """
+    _check_nb_path(nb_path)
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs a CUDA device, got {device}")
+    launch = _launcher("rough_mc", _ROUGH_LAUNCH_ARGTYPES)
+    nb_steps, host_args, c = _rough_args(ttm, sigma0, theta, kappa1, kappa2, rho, volvol,
+                                         nodes, weights, nb_steps_per_year)
+    x, vw, y = (torch.empty(nb_path, dtype=torch.float32, device=device) for _ in range(3))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(x.data_ptr(), vw.data_ptr(), y.data_ptr(), nb_path, int(seed) & _M32,
+                     nb_steps, len(c.nodes), host_args.ctypes.data, stream)
+    _raise_on_error("rough_mc", err)
+    simulate_rough_terminal_cuda.launches += 1
+    return x, vw, y
+
+
+simulate_rough_terminal_cuda.launches = 0
+
+
+def simulate_rough_terminal_kernel(seed: int, nb_path: int, device="cpu", **kwargs
+                                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """the rough chain pricer's path loop: a CUDA ``device`` runs the CUDA
+    kernel, the CPU its plain version.  Nothing else dispatches."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return simulate_rough_terminal_cuda(seed, nb_path, device=device, **kwargs)
+    if device.type == "cpu":
+        return simulate_rough_terminal_torch(seed, nb_path, device=device, **kwargs)
+    raise ValueError(f"no rough MC kernel for device {device}")
 
 
 def engine_setup(seed: Optional[int], nb_path: int, default_seed: int = 24) -> Tuple[int, int]:
