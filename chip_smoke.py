@@ -6,13 +6,14 @@ sm_90a, an H100) and the CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds the hand-written Monte-Carlo kernels from ``csrc/`` (LogSV, Heston
-and rough LogSV, one nvcc each, started together), holds each against its
-plain PyTorch version on the card, drives the port's serving paths on the
-bundled BTC chain (LogSV analytic prices and implied vols, then MC through
-its kernel; Heston analytic prices, implied vols and MC through its kernel;
-the rough LogSV MC through its kernel), and measures each kernel's
-throughput against its plain version.  Each path runs with every launch
+It builds the hand-written Monte-Carlo kernels from ``csrc/`` (LogSV, Heston,
+rough LogSV and Hawkes JD, one nvcc each, started together), holds each
+against its plain PyTorch version on the card, drives the port's serving
+paths on the bundled BTC chain (LogSV analytic prices and implied vols, then
+MC through its kernel; Heston analytic prices, implied vols and MC through
+its kernel; the rough LogSV MC through its kernel; Hawkes JD analytic prices,
+implied vols, one risk-premia reprice and MC through its kernel), and
+measures each kernel's throughput against its plain version.  Each path runs with every launch
 count set to 0 just before it and read just after.  Each phase prints one
 line; any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -37,9 +38,14 @@ THROUGHPUT_TTM = 1.0      # 361 Euler steps at 360 steps/yr
 # Euler bias moves the far-OTM call ivols by up to 0.014 from the analytic
 # ones; at 360 steps/yr the largest gap is 0.007 (plain version, 2^20 paths).
 MC_STEPS_PER_YEAR = 360
-KERNELS = ("logsv_mc", "heston_mc", "rough_mc")
+KERNELS = ("logsv_mc", "heston_mc", "rough_mc", "hawkes_mc")
 # the rough kernel-vs-plain and throughput phases: 3 nodes of the H = 0.1 lift
 ROUGH_H, ROUGH_NODES, ROUGH_T = 0.1, 3, 0.43
+# the Hawkes kernel runs at 1800 steps/yr: ttm 0.05 is 91 steps, 0.2 is 361
+HAWKES_MAIN_TTM, HAWKES_THROUGHPUT_TTM, HAWKES_STEPS_PER_YEAR = 0.05, 0.2, 1800
+HAWKES_GAMMA = 0.5
+# warm repeats of the Hawkes calls: an analytic reprice is ~10^5 small launches
+HAWKES_REPEATS = 3
 
 
 def _check(ok: bool, what: str) -> None:
@@ -98,14 +104,15 @@ def _ptxas(log: str) -> str:
 
 def _reset_counts(cuda_mc) -> None:
     for fn in (cuda_mc.simulate_logsv_terminal_cuda, cuda_mc.simulate_heston_terminal_cuda,
-               cuda_mc.simulate_rough_terminal_cuda):
+               cuda_mc.simulate_rough_terminal_cuda, cuda_mc.simulate_hawkesjd_terminal_cuda):
         fn.launches = 0
 
 
 def _counts(cuda_mc) -> dict:
     return {"logsv_mc": cuda_mc.simulate_logsv_terminal_cuda.launches,
             "heston_mc": cuda_mc.simulate_heston_terminal_cuda.launches,
-            "rough_mc": cuda_mc.simulate_rough_terminal_cuda.launches}
+            "rough_mc": cuda_mc.simulate_rough_terminal_cuda.launches,
+            "hawkes_mc": cuda_mc.simulate_hawkesjd_terminal_cuda.launches}
 
 
 def _vs_plain(name, nb_steps, kernel_out, plain_out, labels) -> float:
@@ -142,7 +149,7 @@ def _throughput(name, run_k, run_p, nb_steps):
     return k_ms, p_ms
 
 
-def _gpu_vs_cpu(gpu, cpu, chain, params, prices, ivols, what):
+def _gpu_vs_cpu(gpu, cpu, chain, params, prices, ivols, what, repeats=5):
     """the card's analytic ``prices`` and ``ivols`` against the CPU's; returns
     (price gap / forward, warm price ms, warm ivols ms)."""
     prices_cpu = cpu.price_chain(chain, params)
@@ -153,8 +160,8 @@ def _gpu_vs_cpu(gpu, cpu, chain, params, prices, ivols, what):
         _check(np.max(np.abs(ig - ic)) <= 1e-8, f"{what} GPU ivols differ from CPU ivols")
     gap = max(float(np.max(np.abs(pg - pc) / fwd))
               for pg, pc, fwd in zip(prices, prices_cpu, chain.forwards))
-    price_ms = _warm_ms(lambda: gpu.price_chain(chain, params))
-    ivol_ms = _warm_ms(lambda: gpu.compute_model_ivols_for_chain(chain, params))
+    price_ms = _warm_ms(lambda: gpu.price_chain(chain, params), repeats)
+    ivol_ms = _warm_ms(lambda: gpu.compute_model_ivols_for_chain(chain, params), repeats)
     return gap, price_ms, ivol_ms
 
 
@@ -209,6 +216,15 @@ def main() -> int:
     err["rough_mc"] = _vs_plain(
         "rough_mc", main_steps, cuda_mc.simulate_rough_terminal_cuda(7, NB_PATH, **rough_kw),
         cuda_mc.simulate_rough_terminal_torch(7, NB_PATH, **rough_kw), ("x", "vw", "y"))
+    HP = svt.HawkesJDParams()
+    hawkes_kw = dict(ttm=HAWKES_MAIN_TTM, **HP.sim_params())
+    lp0 = torch.as_tensor((rng.uniform(0.5, 2.0, NB_PATH) * HP.theta_p).astype(np.float32), device=dev)
+    lm0 = torch.as_tensor((rng.uniform(0.5, 2.0, NB_PATH) * HP.theta_m).astype(np.float32), device=dev)
+    hawkes_steps = set_time_grid(HAWKES_MAIN_TTM, HAWKES_STEPS_PER_YEAR)[0]
+    err["hawkes_mc"] = _vs_plain(
+        "hawkes_mc", hawkes_steps, cuda_mc.simulate_hawkesjd_terminal_cuda(7, x0, lp0, lm0, **hawkes_kw),
+        cuda_mc.simulate_hawkesjd_terminal_torch(7, x0, lp0, lm0, **hawkes_kw),
+        ("x", "lambda_p", "lambda_m"))
     chain = svt.get_btc_test_chain_data()
     launches = {}
 
@@ -305,7 +321,59 @@ def main() -> int:
           f"H=0.1 ({ROUGH_NODES} nodes) finite ivol shares {finite}; warm "
           f"model_mc_price_chain(use_rough_mc=True) {rough_ms:.1f} ms", flush=True)
 
-    # 8. throughput at 2^20 paths x 361 steps: plain, kernel, kernel, plain
+    # 8. Hawkes JD path: analytic pricing, one risk-premia reprice, MC through the kernel
+    kgpu, kcpu = svt.HawkesJDPricer(device=DEVICE), svt.HawkesJDPricer(device="cpu")
+    _reset_counts(cuda_mc)
+    kprices = kgpu.price_chain(chain, HP)
+    kivols = kgpu.compute_model_ivols_for_chain(chain, HP)
+    kmc = kgpu.compute_mc_chain_implied_vols(chain, HP, engine="cuda", nb_path=NB_PATH, seed=24)
+    launches["hawkes_mc"] = _counts(cuda_mc)["hawkes_mc"]
+    _check(launches["hawkes_mc"] == len(chain.ttms),
+           f"Hawkes path launched {launches['hawkes_mc']} kernels")
+    gap, price_ms, ivol_ms = _gpu_vs_cpu(kgpu, kcpu, chain, HP, kprices, kivols, "Hawkes",
+                                         repeats=HAWKES_REPEATS)
+    for ig in kivols:
+        _check(np.all((ig > 0.2) & (ig < 2.0)), f"Hawkes ivols outside [0.2, 2.0]: {ig}")
+    print(f"[hawkes-analytic] GPU vs CPU max |dprice|/fwd {gap:.2e}; warm price_chain "
+          f"{price_ms:.1f} ms, warm compute_model_ivols_for_chain {ivol_ms:.1f} ms", flush=True)
+
+    norm_chain = svt.OptionChain.to_forward_normalised_strikes(chain)
+    HG = svt.HawkesJDParams(risk_premia_gamma=HAWKES_GAMMA)
+    t0 = time.perf_counter()
+    gprices, givols = kgpu.compute_chain_prices_with_vols(norm_chain, HG)
+    torch.cuda.synchronize()
+    gamma_ms = 1e3 * (time.perf_counter() - t0)
+    cprices, civols = kcpu.compute_chain_prices_with_vols(norm_chain, HG)
+    ggap = 0.0
+    for pg, pc, ig, ic in zip(gprices, cprices, givols, civols):
+        _check(np.all(np.isfinite(pg)) and np.all(np.isfinite(ig)),
+               "Hawkes risk-premia output not finite")
+        _check(np.max(np.abs(pg - pc)) <= 1e-10, "Hawkes risk-premia GPU prices differ from CPU")
+        _check(np.max(np.abs(ig - ic)) <= 1e-8, "Hawkes risk-premia GPU ivols differ from CPU")
+        ggap = max(ggap, float(np.max(np.abs(pg - pc))))
+    print(f"[hawkes-risk-premia] gamma {HAWKES_GAMMA} on the forward-normalised chain: GPU vs "
+          f"CPU max |dprice| {ggap:.2e}; compute_chain_prices_with_vols {gamma_ms:.1f} ms "
+          f"(one call)", flush=True)
+
+    worst = 0.0
+    for a, m, s, fwd in zip(kprices, kmc[0], kmc[6], chain.forwards):
+        _check(np.all(np.isfinite(m)), f"Hawkes MC prices not finite: {m}")
+        ratio = np.abs(a - m) / (4.0 * s + 0.02 * a + 2e-4 * fwd)   # tests/test_hawkes.py's rule
+        _check(np.all(ratio < 1.0), f"Hawkes MC {m} outside 4 stderr + 2% + 2e-4 fwd of {a}")
+        worst = max(worst, float(np.max(ratio)))
+
+    def hawkes_mc_call():
+        before = cuda_mc.simulate_hawkesjd_terminal_cuda.launches
+        kgpu.compute_mc_chain_implied_vols(chain, HP, engine="cuda", nb_path=NB_PATH, seed=24)
+        added = cuda_mc.simulate_hawkesjd_terminal_cuda.launches - before
+        _check(added == len(chain.ttms), f"one Hawkes MC chain call made {added} launches")
+
+    kmc_ms = _warm_ms(hawkes_mc_call, repeats=HAWKES_REPEATS)
+    print(f"[hawkes-mc-chain] {NB_PATH} paths, {launches['hawkes_mc']} kernel launches for "
+          f"{len(chain.ttms)} maturities; max |MC - analytic| / (4 stderr + 2% price + 2e-4 fwd) "
+          f"{worst:.3f}; warm compute_mc_chain_implied_vols {kmc_ms:.1f} ms", flush=True)
+
+    # 9. throughput at 2^20 paths x 361 steps: plain, kernel, kernel, plain
     nb_steps = set_time_grid(THROUGHPUT_TTM, 360)[0]
     times = {}
     tp_kw = dict(mc_kw, ttm=THROUGHPUT_TTM)
@@ -321,8 +389,13 @@ def main() -> int:
         f"rough_mc (N={ROUGH_NODES})",
         lambda: cuda_mc.simulate_rough_terminal_cuda(7, NB_PATH, **tp_kw),
         lambda: cuda_mc.simulate_rough_terminal_torch(7, NB_PATH, **tp_kw), nb_steps)
+    tp_kw = dict(hawkes_kw, ttm=HAWKES_THROUGHPUT_TTM)
+    times["hawkes_mc"] = _throughput(
+        "hawkes_mc", lambda: cuda_mc.simulate_hawkesjd_terminal_cuda(7, x0, lp0, lm0, **tp_kw),
+        lambda: cuda_mc.simulate_hawkesjd_terminal_torch(7, x0, lp0, lm0, **tp_kw),
+        set_time_grid(HAWKES_THROUGHPUT_TTM, HAWKES_STEPS_PER_YEAR)[0])
 
-    replaces = {"logsv_mc": 142, "heston_mc": 282, "rough_mc": 386}
+    replaces = {"logsv_mc": 142, "heston_mc": 282, "rough_mc": 386, "hawkes_mc": 588}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"stochvolmodels_torch/csrc/{name}.cu",

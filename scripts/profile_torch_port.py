@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's serving path, on one CUDA GPU.
 
-    python3 scripts/profile_torch_port.py [--nb-path 1048576] [--out chiprun_out]
+    python3 scripts/profile_torch_port.py [--model logsv|hawkes] [--nb-path 1048576]
+                                          [--out DIR]
 
-For each warm call of the BTC-chain serving path (analytic ``price_chain``,
-``compute_model_ivols_for_chain``, and the MC chain with implied vols
-through the CUDA kernel) it prints one line: host wall-clock (median of 3
-unprofiled calls), device busy time (sum of device kernel time of one
-profiled call, from ``torch.profiler``), the device's idle share
+For each warm call of a model's BTC-chain serving path (analytic
+``price_chain``, ``compute_model_ivols_for_chain``, and the MC chain, bare
+and with implied vols, through the CUDA kernel) it prints one line: host
+wall-clock (median of 3 unprofiled calls), device busy time (sum of device
+kernel time of one profiled call, from ``torch.profiler``), the device's idle share
 (1 - busy / wall), the number of device kernels, and the three kernels that
 take the most device time.  The full ``key_averages`` tables go to ``<out>/``.
 Exits 1 without a CUDA device.
@@ -54,6 +55,7 @@ def _profile(name, fn, out_dir: Path):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", choices=("logsv", "hawkes"), default="logsv")
     parser.add_argument("--nb-path", type=int, default=1 << 20)
     parser.add_argument("--out", default="chiprun_out")
     args = parser.parse_args()
@@ -64,23 +66,25 @@ def main() -> int:
 
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
-    chain, params = svt.get_btc_test_chain_data(), svt.LOGSV_BTC_PARAMS
-    pricer = svt.LogSVPricer(device="cuda")
-    print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
+    chain = svt.get_btc_test_chain_data()
+    if args.model == "hawkes":
+        params, pricer, mc_kw = svt.HawkesJDParams(), svt.HawkesJDPricer(device="cuda"), {}
+    else:
+        params, pricer = svt.LOGSV_BTC_PARAMS, svt.LogSVPricer(device="cuda")
+        mc_kw = dict(nb_steps=360)
+    mc_kw.update(engine="cuda", nb_path=args.nb_path, seed=24)
+    print(f"device: {torch.cuda.get_device_name(0)}; model {args.model}", flush=True)
+    tag = "" if args.model == "logsv" else f"{args.model}_"
     recs = [
-        _profile("price_chain", lambda: pricer.price_chain(chain, params), out_dir),
-        _profile("compute_model_ivols_for_chain",
+        _profile(f"{tag}price_chain", lambda: pricer.price_chain(chain, params), out_dir),
+        _profile(f"{tag}compute_model_ivols_for_chain",
                  lambda: pricer.compute_model_ivols_for_chain(chain, params), out_dir),
-        _profile("model_mc_price_chain",
-                 lambda: pricer.model_mc_price_chain(chain, params, engine="cuda",
-                                                     nb_path=args.nb_path, seed=24,
-                                                     nb_steps=360), out_dir),
-        _profile("compute_mc_chain_implied_vols",
-                 lambda: pricer.compute_mc_chain_implied_vols(chain, params, engine="cuda",
-                                                              nb_path=args.nb_path, seed=24,
-                                                              nb_steps=360), out_dir),
+        _profile(f"{tag}model_mc_price_chain",
+                 lambda: pricer.model_mc_price_chain(chain, params, **mc_kw), out_dir),
+        _profile(f"{tag}compute_mc_chain_implied_vols",
+                 lambda: pricer.compute_mc_chain_implied_vols(chain, params, **mc_kw), out_dir),
     ]
-    (out_dir / "profile_summary.json").write_text(json.dumps(recs, indent=1))
+    (out_dir / f"profile_{tag}summary.json").write_text(json.dumps(recs, indent=1))
     return 0
 
 

@@ -5,8 +5,9 @@ It imports torch, numpy and scipy only — never jax and nothing of the JAX
 package, which stays beside it as the reference the port is tested against.
 It serves pricing requests for the flagship LogSV model (analytic chain
 prices through the affine-expansion Fourier engine, BSM implied vols, Monte
-Carlo, and the rough lift's Monte Carlo) and for Heston (closed-form Fourier
-prices and Monte Carlo).  Every Monte-Carlo path loop runs in a hand-written
+Carlo, and the rough lift's Monte Carlo), for Heston (closed-form Fourier
+prices and Monte Carlo) and for the Hawkes jump-diffusion model (Riccati
+Fourier prices, the risk-premia pricer, and thinning Monte Carlo).  Every Monte-Carlo path loop runs in a hand-written
 CUDA kernel on NVIDIA Hopper.  Every pricer takes its device explicitly
 (``LogSVPricer(device="cuda")``).
 """
@@ -21,9 +22,11 @@ from stochvolmodels_torch.data.option_chain import ChainGrid, OptionChain, Optio
 from stochvolmodels_torch.data.sample_chains import get_btc_test_chain_data  # noqa: F401
 from stochvolmodels_torch.interop import (  # noqa: F401
     chain_from_numpy,
+    hawkes_params_from_numpy,
     heston_params_from_numpy,
     params_from_numpy,
 )
+from stochvolmodels_torch.models.hawkes_jd import HawkesJDParams, HawkesJDPricer  # noqa: F401
 from stochvolmodels_torch.models.heston import (  # noqa: F401
     BTC_HESTON_PARAMS,
     HestonParams,
@@ -64,6 +67,9 @@ from stochvolmodels_torch.ops.bsm import (  # noqa: F401
 )
 from stochvolmodels_torch.ops.cuda_mc import (  # noqa: F401
     engine_setup,
+    simulate_hawkesjd_terminal_cuda,
+    simulate_hawkesjd_terminal_kernel,
+    simulate_hawkesjd_terminal_torch,
     simulate_heston_terminal_cuda,
     simulate_heston_terminal_kernel,
     simulate_heston_terminal_torch,
@@ -79,7 +85,9 @@ from stochvolmodels_torch.ops.mgf import (  # noqa: F401
     compute_integration_weights,
     get_phi_grid,
     get_transform_var_grid,
+    slice_pricer_with_mgf_grid_with_gamma,
     vanilla_prices_with_mgf_grid,
+    vanilla_slice_pricer_with_mgf_grid,
 )
 from stochvolmodels_torch.ops.payoffs import compute_mc_vars_payoff  # noqa: F401
 from stochvolmodels_torch.utils.funcs import find_nearest, npad, set_time_grid, timer, unpad  # noqa: F401

@@ -9,7 +9,8 @@
 // Path p of a launch draws what the TPU kernel draws for program
 // `seed + (p >> 15)` at in-block index `p & 32767` (one (256 x 128)-path
 // block per TPU program), whatever the CUDA launch geometry.  Step `step`
-// draws from streams 0 and 1 with the step index as its salt.
+// draws from streams 0 and 1 (the normals), and the Hawkes kernel also from
+// streams 2-5, with the step index as its salt.
 #pragma once
 
 #include <cstdint>
@@ -74,6 +75,15 @@ __device__ __forceinline__ void normal_pair(const PathCounter& pc, int step,
   const float s = sign * sqrtf(fmaxf(1.0f - c * c, 0.0f));
   z0 = r * c;
   z1 = r * s;
+}
+
+// the (0, 1) uniform of stream `stream` at step `step`; normal_pair draws
+// streams 0 and 1 of the same counter
+__device__ __forceinline__ float stream_uniform(const PathCounter& pc, int step,
+                                                uint32_t stream) {
+  const uint32_t key = hash_u32(pc.seed_term + static_cast<uint32_t>(step) * 0x7FEB352Du +
+                                stream * 0x846CA68Bu);
+  return uniform_from_bits(hash_u32(pc.idx ^ key));
 }
 
 // max(x, lo) that keeps a NaN x, as jnp.maximum and torch.clamp do

@@ -137,6 +137,30 @@ class OptionChain:
                    discfactors=np.array([discfactor]),
                    ids=np.array([id]) if id is not None else np.array([f"{ttm:0.2f}"]))
 
+    @classmethod
+    def to_forward_normalised_strikes(cls, obj: "OptionChain") -> "OptionChain":
+        """the chain with strikes divided by their forwards and unit forwards;
+        the old forwards are kept as ``forwards0``."""
+        return cls(ttms=obj.ttms, forwards=np.ones_like(obj.forwards),
+                   strikes_ttms=[s / f for s, f in zip(obj.strikes_ttms, obj.forwards)],
+                   optiontypes_ttms=obj.optiontypes_ttms, discfactors=obj.discfactors,
+                   ticker=obj.ticker, ids=obj.ids, bid_ivs=obj.bid_ivs, ask_ivs=obj.ask_ivs,
+                   forwards0=obj.forwards)
+
+    @classmethod
+    def get_slices_as_chain(cls, option_chain: "OptionChain", ids) -> "OptionChain":
+        """the sub-chain of the slices with the given ids, in that order."""
+        indices = [list(option_chain.ids).index(id_) for id_ in ids]
+        pick = lambda seq: None if seq is None else [seq[i] for i in indices]
+        return cls(ids=np.asarray(ids), ttms=option_chain.ttms[indices],
+                   ticker=option_chain.ticker, forwards=option_chain.forwards[indices],
+                   strikes_ttms=pick(option_chain.strikes_ttms),
+                   optiontypes_ttms=pick(option_chain.optiontypes_ttms),
+                   discfactors=option_chain.discfactors[indices],
+                   bid_ivs=pick(option_chain.bid_ivs), ask_ivs=pick(option_chain.ask_ivs),
+                   bid_prices=pick(option_chain.bid_prices),
+                   ask_prices=pick(option_chain.ask_prices))
+
     def compute_model_ivols_from_chain_data(self, model_prices,
                                             forwards: np.ndarray = None,
                                             device="cpu") -> List[np.ndarray]:

@@ -2,8 +2,9 @@
 Carry state over from the JAX package, through plain numpy and floats only.
 
 Nothing here imports the JAX package: callers hand over what its objects hold
-(``LogSvParams.to_dict()``, ``HestonParams.to_dict()``, the ragged arrays of
-an ``OptionChain``), so the same state can be fed to both packages.
+(``LogSvParams.to_dict()``, ``HestonParams.to_dict()``,
+``HawkesJDParams.to_dict()``, the ragged arrays of an ``OptionChain``), so
+the same state can be fed to both packages.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Any, Mapping, Optional, Sequence
 import numpy as np
 
 from stochvolmodels_torch.data.option_chain import OptionChain
+from stochvolmodels_torch.models.hawkes_jd import HawkesJDParams
 from stochvolmodels_torch.models.heston import HestonParams
 from stochvolmodels_torch.models.logsv.params import LogSvParams
 
@@ -43,6 +45,15 @@ def heston_params_from_numpy(d) -> HestonParams:
         return HestonParams(**{k: float(d[k]) for k in ("v0", "theta", "kappa", "rho", "volvol")})
     v0, theta, kappa, rho, volvol = (float(v) for v in np.asarray(d, dtype=float).ravel())
     return HestonParams(v0=v0, theta=theta, kappa=kappa, rho=rho, volvol=volvol)
+
+
+def hawkes_params_from_numpy(d: Mapping[str, Any]) -> HawkesJDParams:
+    """HawkesJDParams from the JAX package's ``HawkesJDParams.to_dict()``;
+    ``risk_premia_gamma`` may be None."""
+    gamma = d.get("risk_premia_gamma")
+    fields = [k for k in HawkesJDParams.__dataclass_fields__ if k != "risk_premia_gamma"]
+    return HawkesJDParams(**{k: float(d[k]) for k in fields},
+                          risk_premia_gamma=None if gamma is None else float(gamma))
 
 
 def chain_from_numpy(ttms: Sequence[float],

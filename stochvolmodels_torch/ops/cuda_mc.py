@@ -3,9 +3,10 @@ The Monte-Carlo path loops: hand-written CUDA kernels and their plain
 PyTorch versions.
 
 Counterpart of ``stochvolmodels_tpu/ops/pallas_mc.py`` for ``_logsv_kernel``
-(``csrc/logsv_mc.cu``), ``_heston_kernel`` (``csrc/heston_mc.cu``) and
-``_rough_kernel`` (``csrc/rough_mc.cu``).  The whole simulation of a path runs
-inside one CUDA thread: the normals come from the murmur3 counter hash over
+(``csrc/logsv_mc.cu``), ``_heston_kernel`` (``csrc/heston_mc.cu``),
+``_rough_kernel`` (``csrc/rough_mc.cu``) and ``_hawkes_kernel``
+(``csrc/hawkes_mc.cu``).  The whole simulation of a path runs inside one
+CUDA thread: the random draws come from the murmur3 counter hash over
 (program seed, step, stream, in-block path index) that the TPU kernels use in
 interpret mode (``csrc/counter_rng.cuh``), the state stays in registers, and
 only the terminal state is written back.  For each model:
@@ -104,10 +105,11 @@ def poly_cospi(u: torch.Tensor) -> torch.Tensor:
 
 
 class _PathNormals:
-    """the two standard normals per step of every path, as the kernels draw
-    them: path p takes TPU program seed ``seed + (p >> 15)`` and in-block
-    index ``p & 32767``; step ``step`` salts streams 0 and 1; sign-bit
-    Box-Muller with the polynomial ln and cos(pi u)."""
+    """the random stream of every path, as the kernels draw it: path p takes
+    TPU program seed ``seed + (p >> 15)`` and in-block index ``p & 32767``;
+    step ``step`` salts every stream.  ``step`` gives the two normals of
+    streams 0 and 1 (sign-bit Box-Muller with the polynomial ln and
+    cos(pi u)), ``bits`` the uint32 bits of any stream."""
 
     def __init__(self, seed: int, nb_path: int, device):
         p = torch.arange(nb_path, dtype=torch.int64, device=device)
@@ -116,10 +118,13 @@ class _PathNormals:
         nb_blocks = (nb_path + BLOCK_PATHS - 1) // BLOCK_PATHS
         self.block_seeds = int(seed) + torch.arange(nb_blocks, dtype=torch.int64, device=device)
 
-    def step(self, step: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    def bits(self, step: int, stream: int) -> torch.Tensor:
         # one key per TPU block, gathered to its paths
-        b1 = hash_u32(self.idx ^ _counter_key(self.block_seeds, step, 0)[self.block])
-        b2 = hash_u32(self.idx ^ _counter_key(self.block_seeds, step, 1)[self.block])
+        return hash_u32(self.idx ^ _counter_key(self.block_seeds, step, stream)[self.block])
+
+    def step(self, step: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        b1 = self.bits(step, 0)
+        b2 = self.bits(step, 1)
         r = torch.sqrt(torch.clamp(-2.0 * poly_log(uniform_from_bits(b1)), min=0.0))
         c = poly_cospi(uniform_from_bits(b2))
         sign = torch.where((b2 & 1) == 0, 1.0, -1.0).to(torch.float32)
@@ -615,6 +620,144 @@ def simulate_rough_terminal_kernel(seed: int, nb_path: int, device="cpu", **kwar
     if device.type == "cpu":
         return simulate_rough_terminal_torch(seed, nb_path, device=device, **kwargs)
     raise ValueError(f"no rough MC kernel for device {device}")
+
+
+# --------------------------------------------------------------------------
+# Hawkes jump-diffusion: Euler with intensity thinning (_hawkes_kernel)
+# --------------------------------------------------------------------------
+
+def _hawkes_args(ttm, mu, sigma, shift_p, mean_p, shift_m, mean_m, theta_p, kappa_p, beta1_p,
+                 beta2_p, theta_m, kappa_m, beta1_m, beta2_m,
+                 nb_steps_per_year) -> Tuple[int, np.ndarray]:
+    """(nb_steps, the 19 float32 scalars of the step): the TPU kernel's 16
+    parameters [mu, sigma, shift_p, mean_p, shift_m, mean_m, theta_p,
+    kappa_p, beta1_p, beta2_p, theta_m, kappa_m, beta1_m, beta2_m,
+    comp_p dt, comp_m dt], then dt, sqrt(dt) and 1/dt.  Each is taken in
+    float64 and rounded once, as the TPU kernel's wrapper does."""
+    nb_steps, dt, _ = set_time_grid(ttm=ttm, nb_steps_per_year=nb_steps_per_year)
+    comp_p_dt = float(dt) * (np.exp(shift_p) / (1.0 - mean_p) - 1.0)
+    comp_m_dt = float(dt) * (np.exp(shift_m) / (1.0 - mean_m) - 1.0)
+    return nb_steps, np.array([mu, sigma, shift_p, mean_p, shift_m, mean_m, theta_p, kappa_p,
+                               beta1_p, beta2_p, theta_m, kappa_m, beta1_m, beta2_m,
+                               comp_p_dt, comp_m_dt, dt, np.sqrt(dt), 1.0 / dt],
+                              dtype=np.float32)
+
+
+def simulate_hawkesjd_terminal_torch(seed: int,
+                                     x0: torch.Tensor,
+                                     lambda_p0: torch.Tensor,
+                                     lambda_m0: torch.Tensor,
+                                     ttm: float,
+                                     mu: float,
+                                     sigma: float,
+                                     shift_p: float,
+                                     mean_p: float,
+                                     shift_m: float,
+                                     mean_m: float,
+                                     theta_p: float,
+                                     kappa_p: float,
+                                     beta1_p: float,
+                                     beta2_p: float,
+                                     theta_m: float,
+                                     kappa_m: float,
+                                     beta1_m: float,
+                                     beta2_m: float,
+                                     nb_steps_per_year: int = 1800
+                                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """terminal (x, lambda_p, lambda_m) of the Hawkes JD model by the plain
+    tensor version of the kernel: the same random stream and float32 step,
+    operation for operation.
+
+    Per step: one normal from streams 0 and 1 (radius times cos, no second
+    normal), exponentials -ln u from streams 2-5; a jump fires when
+    lambda > e / dt, taken as ``e * f32(1/dt)`` on every device."""
+    _check_paths(x0, lambda_p0, lambda_m0)
+    nb_steps, a = _hawkes_args(ttm, mu, sigma, shift_p, mean_p, shift_m, mean_m, theta_p, kappa_p,
+                               beta1_p, beta2_p, theta_m, kappa_m, beta1_m, beta2_m,
+                               nb_steps_per_year)
+    drift_dt = float((a[0] - (np.float32(0.5) * a[1]) * a[1]) * a[16])
+    (mu, sigma, shift_p, mean_p, shift_m, mean_m, theta_p, kappa_p, beta1_p, beta2_p, theta_m,
+     kappa_m, beta1_m, beta2_m, comp_p_dt, comp_m_dt, dt, sdt, inv_dt) = (float(v) for v in a)
+    rng = _PathNormals(seed, x0.shape[0], x0.device)
+    expo = lambda step, stream: -poly_log(uniform_from_bits(rng.bits(step, stream)))
+    x, lam_p, lam_m = x0.clone(), lambda_p0.clone(), lambda_m0.clone()
+    for step in range(nb_steps):
+        r = torch.sqrt(torch.clamp(-2.0 * poly_log(uniform_from_bits(rng.bits(step, 0))), min=0.0))
+        z = r * poly_cospi(uniform_from_bits(rng.bits(step, 1)))
+        e_up, e_um, e_jp, e_jm = (expo(step, stream) for stream in (2, 3, 4, 5))
+        j_p = shift_p + e_jp * mean_p
+        j_m = shift_m - e_jm * (-mean_m)
+        diffusion = ((drift_dt - comp_p_dt * lam_p) - comp_m_dt * lam_m) + sigma * (z * sdt)
+        jump_p = torch.where(lam_p > e_up * inv_dt, j_p, 0.0)
+        jump_m = torch.where(lam_m > e_um * inv_dt, j_m, 0.0)
+        x = ((x + diffusion) + jump_p) + jump_m
+        load_p = beta1_p * jump_p + beta2_p * jump_m
+        load_m = beta1_m * jump_p + beta2_m * jump_m
+        lam_p = (lam_p + (kappa_p * (theta_p - lam_p)) * dt) + load_p
+        lam_m = (lam_m + (kappa_m * (theta_m - lam_m)) * dt) + load_m
+    return x, lam_p, lam_m
+
+
+def simulate_hawkesjd_terminal_cuda(seed: int,
+                                    x0: torch.Tensor,
+                                    lambda_p0: torch.Tensor,
+                                    lambda_m0: torch.Tensor,
+                                    ttm: float,
+                                    mu: float,
+                                    sigma: float,
+                                    shift_p: float,
+                                    mean_p: float,
+                                    shift_m: float,
+                                    mean_m: float,
+                                    theta_p: float,
+                                    kappa_p: float,
+                                    beta1_p: float,
+                                    beta2_p: float,
+                                    theta_m: float,
+                                    kappa_m: float,
+                                    beta1_m: float,
+                                    beta2_m: float,
+                                    nb_steps_per_year: int = 1800
+                                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """terminal (x, lambda_p, lambda_m) of the Hawkes JD model by the
+    hand-written CUDA kernel.
+
+    Mirrors ``simulate_hawkesjd_terminal_pallas``: (nb_path,) float32,
+    contiguous CUDA tensors, nb_path a multiple of 128.  Launches on the
+    current stream without synchronising; a refused launch raises.
+    ``simulate_hawkesjd_terminal_cuda.launches`` counts launches.
+    """
+    nb_path = _check_paths(x0, lambda_p0, lambda_m0)
+    _check_cuda_state(x0, lambda_p0, lambda_m0)
+    launch = _launcher("hawkes_mc", _STATE_LAUNCH_ARGTYPES)
+    nb_steps, a = _hawkes_args(ttm, mu, sigma, shift_p, mean_p, shift_m, mean_m, theta_p, kappa_p,
+                               beta1_p, beta2_p, theta_m, kappa_m, beta1_m, beta2_m,
+                               nb_steps_per_year)
+    host_args = np.concatenate([a, LOG_C])
+    x, lam_p, lam_m = (torch.empty_like(x0) for _ in range(3))
+    with torch.cuda.device(x0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(x0.data_ptr(), lambda_p0.data_ptr(), lambda_m0.data_ptr(),
+                     x.data_ptr(), lam_p.data_ptr(), lam_m.data_ptr(),
+                     nb_path, int(seed) & _M32, nb_steps, host_args.ctypes.data, stream)
+    _raise_on_error("hawkes_mc", err)
+    simulate_hawkesjd_terminal_cuda.launches += 1
+    return x, lam_p, lam_m
+
+
+simulate_hawkesjd_terminal_cuda.launches = 0
+
+
+def simulate_hawkesjd_terminal_kernel(seed: int, x0: torch.Tensor, lambda_p0: torch.Tensor,
+                                      lambda_m0: torch.Tensor, **kwargs
+                                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """the Hawkes chain pricer's path loop: CUDA tensors run the CUDA kernel,
+    CPU tensors its plain version.  Nothing else dispatches."""
+    if x0.device.type == "cuda":
+        return simulate_hawkesjd_terminal_cuda(seed, x0, lambda_p0, lambda_m0, **kwargs)
+    if x0.device.type == "cpu":
+        return simulate_hawkesjd_terminal_torch(seed, x0, lambda_p0, lambda_m0, **kwargs)
+    raise ValueError(f"no Hawkes MC kernel for device {x0.device}")
 
 
 def engine_setup(seed: Optional[int], nb_path: int, default_seed: int = 24) -> Tuple[int, int]:

@@ -2,14 +2,15 @@
 Transform-pricing engine: Fourier inversion of payoffs against a log-MGF grid.
 
 PyTorch counterpart of ``stochvolmodels_tpu/ops/mgf.py`` for the log-return
-vanilla pricer.  Complex values are native complex128.  The composite-Simpson
-weights keep the reference's even-length quirk (the last point of an
-even-length grid keeps weight 4), which is baked into its prices.
+vanilla pricer and the risk-premia (gamma) pricer.  Complex values are
+native complex128.  The composite-Simpson weights keep the reference's
+even-length quirk (the last point of an even-length grid keeps weight 4),
+which is baked into its prices.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,15 +22,20 @@ PHI_POINTS = 1000
 
 
 def get_phi_grid(is_spot_measure: bool = True, max_phi: int = PHI_POINTS,
-                 vol_scaler: float = 0.28, device="cpu") -> torch.Tensor:
+                 vol_scaler: float = 0.28, device="cpu",
+                 real_phi: Optional[float] = None) -> torch.Tensor:
     """log-price transform grid phi = real_p + i p, p in [0, 5.6/vol_scaler].
 
-    The real part is -0.5 under the spot measure and +0.5 under the inverse
-    measure.  ``p`` is built as ``k * (stop / (n-1))`` with the end point set
-    to ``stop``: the rounding of ``np.linspace`` and of ``jnp.linspace`` as
-    XLA compiles it, so the grids agree bit for bit.
+    The real part is ``real_phi`` when given, else -0.5 under the spot
+    measure and +0.5 under the inverse measure.  ``p`` is built as
+    ``k * (stop / (n-1))`` with the end point set to ``stop``: the rounding
+    of ``np.linspace`` and of ``jnp.linspace`` as XLA compiles it, so the
+    grids agree bit for bit.
     """
-    real_p = -0.5 if is_spot_measure else 0.5
+    if real_phi is None:
+        real_p = -0.5 if is_spot_measure else 0.5
+    else:
+        real_p = float(real_phi)
     stop = 5.6 / float(vol_scaler)
     div = max_phi - 1
     p = torch.cat([torch.arange(div, dtype=torch.float64, device=device) * (stop / div),
@@ -39,13 +45,14 @@ def get_phi_grid(is_spot_measure: bool = True, max_phi: int = PHI_POINTS,
 
 def get_transform_var_grid(variable_type: VariableType = VariableType.LOG_RETURN,
                            is_spot_measure: bool = True, max_phi: int = PHI_POINTS,
-                           vol_scaler: float = 0.28, device="cpu"
+                           vol_scaler: float = 0.28, device="cpu",
+                           real_phi: Optional[float] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(phi, psi, theta) grids with the two inactive grids zeroed."""
     if variable_type != VariableType.LOG_RETURN:
         raise NotImplementedError(f"variable_type={variable_type}")
     phi_grid = get_phi_grid(is_spot_measure=is_spot_measure, max_phi=max_phi,
-                            vol_scaler=vol_scaler, device=device)
+                            vol_scaler=vol_scaler, device=device, real_phi=real_phi)
     zero = torch.zeros_like(phi_grid)
     return phi_grid, zero, zero
 
@@ -72,40 +79,71 @@ def compute_integration_weights(var_grid: torch.Tensor, is_simpson: bool = True)
 def _nansum_re(weights: torch.Tensor, exponent: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Re[sum_n w_n exp(z_n)] with NaN and overflowing terms dropped.
 
-    ``weights`` is real; a term is dropped where Re z or Im z is NaN, where
-    Re z exceeds 0.98 log(max float), or where the term itself is NaN.
+    ``weights`` is real or complex: a complex weight contributes
+    ``e^Re z (Re w cos Im z - Im w sin Im z)``.  A term is dropped where
+    Re z or Im z is NaN, where Re z exceeds 0.98 log(max float), or where
+    the term itself is NaN.
     """
     re, im = exponent.real, exponent.imag
     cap = 0.98 * math.log(torch.finfo(re.dtype).max)
     bad = torch.isnan(re) | torch.isnan(im) | (re > cap)
     e = torch.exp(torch.where(bad, 0.0, re))
     im_safe = torch.where(bad, 0.0, im)
-    term = e * (weights * torch.cos(im_safe))
+    if weights.is_complex():
+        term = e * (weights.real * torch.cos(im_safe) - weights.imag * torch.sin(im_safe))
+    else:
+        term = e * (weights * torch.cos(im_safe))
     return torch.sum(torch.where(bad | torch.isnan(term), 0.0, term), dim=dim)
+
+
+def _real_over(w: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """real ``w`` over complex ``den``, in the JAX package's operation order
+    (``Cplx.__rtruediv__``): (w Re d, -w Im d) / |d|^2."""
+    d2 = den.real * den.real + den.imag * den.imag
+    return torch.complex(w * den.real / d2, -w * den.imag / d2)
+
+
+def _payoff_weights(phi_grid: torch.Tensor, dp: torch.Tensor, real_phi_is_half: bool,
+                    shift: float) -> torch.Tensor:
+    """the capped-payoff kernel -(dp/pi) / ((phi + shift + 1)(phi + shift));
+    with ``real_phi_is_half`` its real form on Re phi = -1/2,
+    (dp/pi) / (p^2 + 1/4)."""
+    p = phi_grid.imag
+    if real_phi_is_half:
+        return (dp / math.pi) / (p * p + 0.25)
+    return -_real_over(dp / math.pi, (phi_grid + (shift + 1.0)) * (phi_grid + shift))
+
+
+def _log_moneyness_exponent(x: torch.Tensor, phi_grid: torch.Tensor,
+                            log_mgf_grid: torch.Tensor) -> torch.Tensor:
+    """z = -x phi + logMGF, shape (..., K, N), assembled part by part."""
+    z_re = -x[..., None] * phi_grid.real + log_mgf_grid.real[..., None, :]
+    z_im = -x[..., None] * phi_grid.imag + log_mgf_grid.imag[..., None, :]
+    return torch.complex(z_re, z_im)
 
 
 def vanilla_prices_with_mgf_grid(log_mgf_grid: torch.Tensor, phi_grid: torch.Tensor,
                                  forwards: torch.Tensor, strikes: torch.Tensor,
                                  optiontypes, discfactors=1.0,
                                  is_spot_measure: bool = True,
-                                 is_simpson: bool = True) -> torch.Tensor:
+                                 is_simpson: bool = True,
+                                 real_phi_is_half: bool = True) -> torch.Tensor:
     """capped-payoff Fourier inversion for one slice or a stack of slices.
 
-    Shapes: ``log_mgf_grid`` (..., N) complex, ``phi_grid`` (N,) with real
-    part +-0.5, ``forwards`` (...,), ``strikes``/``optiontypes`` (..., K).
-    Returns prices (..., K).
+    Shapes: ``log_mgf_grid`` (..., N) complex, ``phi_grid`` (N,),
+    ``forwards`` (...,), ``strikes``/``optiontypes`` (..., K).  Returns
+    prices (..., K).  ``real_phi_is_half`` selects the real payoff kernel
+    (Re phi = +-1/2); otherwise the complex kernel
+    -1/((phi + 1) phi) (spot measure) or -1/((phi - 1) phi) (inverse).
     """
     dp = compute_integration_weights(var_grid=phi_grid, is_simpson=is_simpson)
-    p = phi_grid.imag
-    p_payoff = (dp / math.pi) / (p * p + 0.25)
+    p_payoff = _payoff_weights(phi_grid, dp, real_phi_is_half,
+                               shift=0.0 if is_spot_measure else -1.0)
 
     fwd = forwards[..., None] if forwards.dim() == strikes.dim() - 1 else forwards
     x = torch.log(fwd / strikes)                                   # (..., K)
-
-    # exponent z = -x*phi + logMGF, shape (..., K, N), assembled per part
-    z_re = -x[..., None] * phi_grid.real + log_mgf_grid.real[..., None, :]
-    z_im = -x[..., None] * phi_grid.imag + log_mgf_grid.imag[..., None, :]
-    capped = _nansum_re(p_payoff, torch.complex(z_re, z_im), dim=-1)  # (..., K)
+    capped = _nansum_re(p_payoff, _log_moneyness_exponent(x, phi_grid, log_mgf_grid),
+                        dim=-1)                                    # (..., K)
 
     is_call = (as_option_codes(optiontypes, strikes.device) & 1).to(torch.bool)
     if isinstance(discfactors, torch.Tensor) and discfactors.dim() == strikes.dim() - 1:
@@ -116,4 +154,55 @@ def vanilla_prices_with_mgf_grid(log_mgf_grid: torch.Tensor, phi_grid: torch.Ten
     else:  # inverse measure: multiply by forward
         call_px = fwd * discfactors * (1.0 - capped)
         put_px = fwd * discfactors * (torch.exp(-x) - capped)
+    return torch.where(is_call, call_px, put_px)
+
+
+def vanilla_slice_pricer_with_mgf_grid(log_mgf_grid: torch.Tensor, phi_grid: torch.Tensor,
+                                       forward, strikes, optiontypes, discfactor=1.0,
+                                       is_spot_measure: bool = True,
+                                       is_simpson: bool = True) -> torch.Tensor:
+    """one slice; the payoff kernel is chosen from the grid's real part, as
+    the JAX package does."""
+    re0 = float(phi_grid.real.reshape(-1)[0])
+    strikes = torch.as_tensor(strikes, dtype=torch.float64, device=phi_grid.device)
+    return vanilla_prices_with_mgf_grid(
+        log_mgf_grid=log_mgf_grid, phi_grid=phi_grid,
+        forwards=torch.as_tensor(float(forward), dtype=torch.float64, device=phi_grid.device),
+        strikes=strikes, optiontypes=optiontypes, discfactors=discfactor,
+        is_spot_measure=is_spot_measure, is_simpson=is_simpson,
+        real_phi_is_half=abs(abs(re0) - 0.5) < 1e-12)
+
+
+def slice_pricer_with_mgf_grid_with_gamma(log_mgf_grid: torch.Tensor,
+                                          phi_grid: torch.Tensor,
+                                          risk_premia_gamma: float,
+                                          ttm: float,
+                                          forward: float,
+                                          normalizer: float,
+                                          gamma_forward: float,
+                                          strikes,
+                                          optiontypes,
+                                          discfactor=1.0,
+                                          is_spot_measure: bool = True,
+                                          is_simpson: bool = True,
+                                          real_phi_is_half: bool = False) -> torch.Tensor:
+    """risk-premia-gamma payoff inversion for one slice (spot measure only).
+
+    The payoff kernel is shifted by gamma, -1/((phi + gamma + 1)(phi +
+    gamma)); calls assemble against the gamma-forward and the gamma-strike
+    K^(1 + gamma) with the MGF normalizer.  ``ttm`` and ``discfactor`` are
+    unused, as in the JAX package.
+    """
+    if not is_spot_measure:
+        raise NotImplementedError("gamma kernel only under the spot measure")
+    dp = compute_integration_weights(var_grid=phi_grid, is_simpson=is_simpson)
+    p_payoff = _payoff_weights(phi_grid, dp, real_phi_is_half, shift=float(risk_premia_gamma))
+    strikes = torch.as_tensor(strikes, dtype=torch.float64, device=phi_grid.device)
+    x = torch.log(float(forward) / strikes)
+    capped = _nansum_re(p_payoff, _log_moneyness_exponent(x, phi_grid, log_mgf_grid), dim=-1)
+
+    is_call = (as_option_codes(optiontypes, strikes.device) & 1).to(torch.bool)
+    gamma_strikes = torch.pow(strikes, 1.0 + risk_premia_gamma)
+    call_px = gamma_forward - normalizer * gamma_strikes * capped
+    put_px = strikes - normalizer * gamma_strikes * capped
     return torch.where(is_call, call_px, put_px)

@@ -11,7 +11,7 @@ import pytest
 
 from stochvolmodels_torch.ops import _build
 
-KERNELS = ("logsv_mc", "heston_mc", "rough_mc")
+KERNELS = ("logsv_mc", "heston_mc", "rough_mc", "hawkes_mc")
 
 
 @pytest.fixture

@@ -45,6 +45,13 @@ rough.approximate_kernel(T=float(chain.ttms[-1]))
 mc, _ = svt.LogSVPricer(device="cpu").model_mc_price_chain(
     chain, rough, nb_path=256, nb_steps=60, use_rough_mc=True, engine="cuda")
 assert all(np.all(np.isfinite(p)) for p in mc)
+hawkes = svt.HawkesJDPricer(device="cpu")
+hawkes_ivols = hawkes.compute_model_ivols_for_chain(chain, svt.HawkesJDParams())
+assert all(np.all((iv > 0.2) & (iv < 2.0)) for iv in hawkes_ivols), hawkes_ivols
+hawkes_mc, _ = hawkes.model_mc_price_chain(
+    svt.OptionChain.get_slices_as_chain(chain, ids=["2w"]), svt.HawkesJDParams(), nb_path=256,
+    engine="cuda")
+assert np.all(np.isfinite(hawkes_mc[0]))
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("ok", len(prices))
@@ -52,9 +59,9 @@ print("ok", len(prices))
 
 
 def test_port_imports_and_prices_without_jax_pandas_matplotlib_triton():
-    """LogSV and Heston analytic prices and the rough MC's plain kernel
-    version, in a process that cannot import jax, pandas, matplotlib or
-    triton."""
+    """LogSV, Heston and Hawkes analytic prices, the rough and Hawkes MC's
+    plain kernel versions, in a process that cannot import jax, pandas,
+    matplotlib or triton."""
     out = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, capture_output=True,
                          text=True, timeout=300, env=dict(os.environ, PYTHONPATH=str(REPO)))
     assert out.returncode == 0, out.stderr
@@ -64,6 +71,6 @@ def test_port_imports_and_prices_without_jax_pandas_matplotlib_triton():
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|stochvolmodels_tpu)\b", re.M)
     sources = sorted(PORT.rglob("*.py"))
-    assert len(sources) >= 19
+    assert len(sources) >= 20
     offenders = [str(p.relative_to(REPO)) for p in sources if pattern.search(p.read_text())]
     assert not offenders, offenders
