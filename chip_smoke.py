@@ -7,17 +7,19 @@ sm_90a, an H100) and the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the hand-written Monte-Carlo kernels from ``csrc/`` (LogSV, Heston,
-rough LogSV and Hawkes JD, one nvcc each, started together), holds each
-against its plain PyTorch version on the card, drives the port's serving
-paths on the bundled BTC chain (LogSV analytic prices and implied vols, then
-MC through its kernel; Heston analytic prices, implied vols and MC through
-its kernel; the rough LogSV MC through its kernel; Hawkes JD analytic prices,
-implied vols, one risk-premia reprice and MC through its kernel), and
-measures each kernel's throughput against its plain version.  Each path runs with every launch
-count set to 0 just before it and read just after.  Each phase prints one
-line; any failure raises and exits non-zero.  The last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
-prints no result.
+rough LogSV, Hawkes JD and the LogSV variant study, one nvcc each, started
+together), holds each against its plain PyTorch version on the card (each of
+the 14 variants of the study), drives the port's serving paths on the
+bundled BTC chain (LogSV analytic prices and implied vols, then MC through
+its kernel; Heston analytic prices, implied vols and MC through its kernel;
+the rough LogSV MC through its kernel; Hawkes JD analytic prices, implied
+vols, one risk-premia reprice and MC through its kernel) and the variant
+study of the LogSV path loop (each variant once, at 2^20 paths x 360 steps),
+and measures each kernel's throughput against its plain version and its
+roofline bound.  Each path runs with every launch count set to 0 just before
+it and read just after.  Each phase prints one line; any failure raises and
+exits non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Without
+a CUDA device it exits 1 and prints no result.
 """
 import json
 import re
@@ -38,7 +40,7 @@ THROUGHPUT_TTM = 1.0      # 361 Euler steps at 360 steps/yr
 # Euler bias moves the far-OTM call ivols by up to 0.014 from the analytic
 # ones; at 360 steps/yr the largest gap is 0.007 (plain version, 2^20 paths).
 MC_STEPS_PER_YEAR = 360
-KERNELS = ("logsv_mc", "heston_mc", "rough_mc", "hawkes_mc")
+KERNELS = ("logsv_mc", "heston_mc", "rough_mc", "hawkes_mc", "logsv_variants")
 # the rough kernel-vs-plain and throughput phases: 3 nodes of the H = 0.1 lift
 ROUGH_H, ROUGH_NODES, ROUGH_T = 0.1, 3, 0.43
 # the Hawkes kernel runs at 1800 steps/yr: ttm 0.05 is 91 steps, 0.2 is 361
@@ -46,6 +48,13 @@ HAWKES_MAIN_TTM, HAWKES_THROUGHPUT_TTM, HAWKES_STEPS_PER_YEAR = 0.05, 0.2, 1800
 HAWKES_GAMMA = 0.5
 # warm repeats of the Hawkes calls: an analytic reprice is ~10^5 small launches
 HAWKES_REPEATS = 3
+# the variant study: dt = 1/360, 91 steps against the plain versions, 360 for the study
+VARIANT_DT, VARIANT_CHECK_STEPS, VARIANT_STEPS = 1.0 / 360.0, 91, 360
+# the bytes of state each path reads and writes once
+STATE_BYTES = {"logsv_mc": 24, "heston_mc": 24, "rough_mc": 12, "hawkes_mc": 24,
+               "logsv_variants": 8}
+# H100 SXM at 700 W: float32 outside the tensor cores, and HBM3
+PEAK_OPS_PER_S, PEAK_BYTES_PER_S = 67e12, 3.35e12
 
 
 def _check(ok: bool, what: str) -> None:
@@ -87,32 +96,51 @@ def _event_ms(fn, repeats: int) -> float:
 
 def _ptxas(log: str) -> str:
     """registers and spills of each kernel entry in an nvcc -Xptxas -v log;
-    template instances of the rough kernel are named by their factor count."""
+    template instances are named by their arguments (the rough kernel's
+    factor count; the variant study's variant and unroll), and more than six
+    are summed up."""
     parts, entry = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            n = re.search(r"ILi(\d+)E", m.group(1))
-            entry = f"N={n.group(1)}" if n else "kernel"
+            n = re.findall(r"Li(\d+)E", m.group(1))
+            entry = ",".join(n) if n else "kernel"
         elif "spill" in line and entry:
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            parts.append([entry, None, f"spills {spills.group(1)}/{spills.group(2)} B"])
+            parts.append([entry, 0, int(spills.group(1)) + int(spills.group(2))])
         elif "Used" in line and "registers" in line and parts:
-            parts[-1][1] = re.search(r"Used (\d+) registers", line).group(1) + " registers"
-    return "; ".join(f"{e}: {r}, {s}" for e, r, s in sorted(parts))
+            parts[-1][1] = int(re.search(r"Used (\d+) registers", line).group(1))
+    if len(parts) > 6:
+        regs = [r for _, r, _ in parts]
+        return (f"{len(parts)} instances, {min(regs)}-{max(regs)} registers, "
+                f"{sum(s for _, _, s in parts)} B spilled in all")
+    return "; ".join(f"{e}: {r} registers, {s} B spilled" for e, r, s in sorted(parts))
 
 
-def _reset_counts(cuda_mc) -> None:
-    for fn in (cuda_mc.simulate_logsv_terminal_cuda, cuda_mc.simulate_heston_terminal_cuda,
-               cuda_mc.simulate_rough_terminal_cuda, cuda_mc.simulate_hawkesjd_terminal_cuda):
+def _wrappers(cuda_mc, mc_variants) -> dict:
+    return {"logsv_mc": cuda_mc.simulate_logsv_terminal_cuda,
+            "heston_mc": cuda_mc.simulate_heston_terminal_cuda,
+            "rough_mc": cuda_mc.simulate_rough_terminal_cuda,
+            "hawkes_mc": cuda_mc.simulate_hawkesjd_terminal_cuda,
+            "logsv_variants": mc_variants.run_variant_cuda}
+
+
+def _reset_counts(cuda_mc, mc_variants) -> None:
+    for fn in _wrappers(cuda_mc, mc_variants).values():
         fn.launches = 0
 
 
-def _counts(cuda_mc) -> dict:
-    return {"logsv_mc": cuda_mc.simulate_logsv_terminal_cuda.launches,
-            "heston_mc": cuda_mc.simulate_heston_terminal_cuda.launches,
-            "rough_mc": cuda_mc.simulate_rough_terminal_cuda.launches,
-            "hawkes_mc": cuda_mc.simulate_hawkesjd_terminal_cuda.launches}
+def _counts(cuda_mc, mc_variants) -> dict:
+    return {name: fn.launches for name, fn in _wrappers(cuda_mc, mc_variants).items()}
+
+
+def _bound_ms(name: str, ops_per_step, nb_path: int, nb_steps: int):
+    """(the least time the card could take for this run's work, what bounds
+    it): the larger of the operations over the float32 peak and the bytes
+    of state over the memory rate."""
+    ops_ms = 1e3 * sum(ops_per_step) * nb_path * nb_steps / PEAK_OPS_PER_S
+    bytes_ms = 1e3 * STATE_BYTES[name] * nb_path / PEAK_BYTES_PER_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def _vs_plain(name, nb_steps, kernel_out, plain_out, labels) -> float:
@@ -171,7 +199,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import stochvolmodels_torch as svt
-    from stochvolmodels_torch.ops import _build, cuda_mc
+    from stochvolmodels_torch.ops import _build, cuda_mc, mc_variants
     from stochvolmodels_torch.utils.funcs import set_time_grid
 
     # 1. device
@@ -225,17 +253,32 @@ def main() -> int:
         "hawkes_mc", hawkes_steps, cuda_mc.simulate_hawkesjd_terminal_cuda(7, x0, lp0, lm0, **hawkes_kw),
         cuda_mc.simulate_hawkesjd_terminal_torch(7, x0, lp0, lm0, **hawkes_kw),
         ("x", "lambda_p", "lambda_m"))
+    err["logsv_variants"] = 0.0
+    for variant in mc_variants.VARIANTS:
+        kernel_out = mc_variants.run_variant_cuda(7, x0, VARIANT_CHECK_STEPS, VARIANT_DT, variant)
+        plain_out = mc_variants.run_variant_torch(7, x0, VARIANT_CHECK_STEPS, VARIANT_DT, variant)
+        torch.cuda.synchronize()
+        _check(bool(torch.isfinite(kernel_out).all()),
+               f"logsv_variants {variant} output not finite")
+        diff = (kernel_out - plain_out).abs()
+        max_abs = float(diff.max())
+        scaled = float((diff / plain_out.abs().clamp(min=1.0)).max())
+        print(f"[kernel-vs-plain] logsv_variants {variant} {NB_PATH} paths x "
+              f"{VARIANT_CHECK_STEPS} steps: max abs error {max_abs:.3e}, max error / "
+              f"max(|plain|, 1) {scaled:.3e} (limit 1e-4)", flush=True)
+        _check(scaled <= 1e-4, f"logsv_variants {variant} disagrees with its plain version")
+        err["logsv_variants"] = max(err["logsv_variants"], max_abs)
     chain = svt.get_btc_test_chain_data()
     launches = {}
 
     # 4.-5. LogSV path: analytic pricing and MC through the kernel
     gpu, cpu = svt.LogSVPricer(device=DEVICE), svt.LogSVPricer(device="cpu")
-    _reset_counts(cuda_mc)
+    _reset_counts(cuda_mc, mc_variants)
     prices = gpu.price_chain(chain, P)
     ivols = gpu.compute_model_ivols_for_chain(chain, P)
     mc = gpu.compute_mc_chain_implied_vols(chain, P, engine="cuda", nb_path=NB_PATH, seed=24,
                                            nb_steps=MC_STEPS_PER_YEAR)
-    launches["logsv_mc"] = _counts(cuda_mc)["logsv_mc"]
+    launches["logsv_mc"] = _counts(cuda_mc, mc_variants)["logsv_mc"]
     _check(launches["logsv_mc"] == len(chain.ttms), f"LogSV path launched {launches['logsv_mc']} kernels")
     gap, price_ms, ivol_ms = _gpu_vs_cpu(gpu, cpu, chain, P, prices, ivols, "LogSV")
     for ig in ivols:
@@ -267,11 +310,11 @@ def main() -> int:
 
     # 6. Heston path: analytic pricing and MC through the kernel
     hgpu, hcpu = svt.HestonPricer(device=DEVICE), svt.HestonPricer(device="cpu")
-    _reset_counts(cuda_mc)
+    _reset_counts(cuda_mc, mc_variants)
     hprices = hgpu.price_chain(chain, H)
     hivols = hgpu.compute_model_ivols_for_chain(chain, H)
     hmc = hgpu.compute_mc_chain_implied_vols(chain, H, engine="cuda", nb_path=NB_PATH, seed=24)
-    launches["heston_mc"] = _counts(cuda_mc)["heston_mc"]
+    launches["heston_mc"] = _counts(cuda_mc, mc_variants)["heston_mc"]
     _check(launches["heston_mc"] == len(chain.ttms),
            f"Heston path launched {launches['heston_mc']} kernels")
     gap, price_ms, ivol_ms = _gpu_vs_cpu(hgpu, hcpu, chain, H, hprices, hivols, "Heston")
@@ -297,9 +340,9 @@ def main() -> int:
         rough_params[h].approximate_kernel(T=max_ttm)
     rough_call = lambda h: gpu.model_mc_price_chain(chain, rough_params[h], nb_path=NB_PATH,
                                                     use_rough_mc=True, engine="cuda", seed=24)
-    _reset_counts(cuda_mc)
+    _reset_counts(cuda_mc, mc_variants)
     rmc, rstd = rough_call(0.5)
-    launches["rough_mc"] = _counts(cuda_mc)["rough_mc"]
+    launches["rough_mc"] = _counts(cuda_mc, mc_variants)["rough_mc"]
     _check(launches["rough_mc"] == len(chain.ttms),
            f"rough path launched {launches['rough_mc']} kernels")
     analytic = cpu.price_chain(chain, rough_params[0.5])
@@ -308,7 +351,8 @@ def main() -> int:
         ratio = np.abs(a - m) / (4.0 * s + 0.02 * a + 2e-4 * chain.forwards[0])
         _check(np.all(ratio < 1.0), f"rough H=0.5 MC {m} outside the band of analytic {a}")
         worst = max(worst, float(np.max(ratio)))
-    rough_ivols = chain.compute_model_ivols_from_chain_data(model_prices=rough_call(0.1)[0])
+    rough_ivols = chain.compute_model_ivols_from_chain_data(model_prices=rough_call(0.1)[0],
+                                                            device=DEVICE)
     finite = []
     for iv in rough_ivols:
         ok = np.isfinite(iv)
@@ -323,11 +367,11 @@ def main() -> int:
 
     # 8. Hawkes JD path: analytic pricing, one risk-premia reprice, MC through the kernel
     kgpu, kcpu = svt.HawkesJDPricer(device=DEVICE), svt.HawkesJDPricer(device="cpu")
-    _reset_counts(cuda_mc)
+    _reset_counts(cuda_mc, mc_variants)
     kprices = kgpu.price_chain(chain, HP)
     kivols = kgpu.compute_model_ivols_for_chain(chain, HP)
     kmc = kgpu.compute_mc_chain_implied_vols(chain, HP, engine="cuda", nb_path=NB_PATH, seed=24)
-    launches["hawkes_mc"] = _counts(cuda_mc)["hawkes_mc"]
+    launches["hawkes_mc"] = _counts(cuda_mc, mc_variants)["hawkes_mc"]
     _check(launches["hawkes_mc"] == len(chain.ttms),
            f"Hawkes path launched {launches['hawkes_mc']} kernels")
     gap, price_ms, ivol_ms = _gpu_vs_cpu(kgpu, kcpu, chain, HP, kprices, kivols, "Hawkes",
@@ -373,7 +417,37 @@ def main() -> int:
           f"{len(chain.ttms)} maturities; max |MC - analytic| / (4 stderr + 2% price + 2e-4 fwd) "
           f"{worst:.3f}; warm compute_mc_chain_implied_vols {kmc_ms:.1f} ms", flush=True)
 
-    # 9. throughput at 2^20 paths x 361 steps: plain, kernel, kernel, plain
+    # 9. the variant study of the LogSV path loop: each variant once at 2^20 x 360
+    zeros = torch.zeros(NB_PATH, dtype=torch.float32, device=dev)
+    _reset_counts(cuda_mc, mc_variants)
+    sanity = {}
+    for variant in mc_variants.VARIANTS:
+        before = mc_variants.run_variant_cuda.launches
+        out = mc_variants.run_variant_cuda(0, zeros, VARIANT_STEPS, VARIANT_DT, variant)
+        _check(mc_variants.run_variant_cuda.launches == before + 1,
+               f"one {variant} call made {mc_variants.run_variant_cuda.launches - before} launches")
+        finite = torch.isfinite(out)
+        sanity[variant] = (float(out[finite].double().mean()), int((~finite).sum()))
+    launches["logsv_variants"] = _counts(cuda_mc, mc_variants)["logsv_variants"]
+    _check(launches["logsv_variants"] == len(mc_variants.VARIANTS),
+           f"the variant study launched {launches['logsv_variants']} kernels")
+    for variant in mc_variants.VARIANTS:
+        def run(variant=variant):
+            return mc_variants.run_variant_cuda(1, zeros, VARIANT_STEPS, VARIANT_DT, variant)
+
+        run()
+        ms = min(_event_ms(run, 1) for _ in range(5))
+        bound, _ = _bound_ms("logsv_variants", mc_variants.OPS_PER_STEP[variant], NB_PATH,
+                             VARIANT_STEPS)
+        mean, bad = sanity[variant]
+        print(f"[variants] {variant:18s} {NB_PATH} paths x {VARIANT_STEPS} steps, 1 launch per "
+              f"call: best of 5 {ms:.4f} ms ({NB_PATH * VARIANT_STEPS / ms * 1e3:.4e} "
+              f"path-steps/s), bound {bound:.4f} ms ({bound / ms:.1%}); sanity mean "
+              f"(x+sig+qvar) {mean:.4f}, {bad} non-finite paths", flush=True)
+        # no-exp's sigma = |1 + ln sigma| is not the model's and may leave the floats
+        _check(bad == 0 or variant == "no-exp", f"variant {variant}: {bad} non-finite paths")
+
+    # 10. throughput at 2^20 paths x 361 steps (360 for the study): plain, kernel, kernel, plain
     nb_steps = set_time_grid(THROUGHPUT_TTM, 360)[0]
     times = {}
     tp_kw = dict(mc_kw, ttm=THROUGHPUT_TTM)
@@ -394,14 +468,32 @@ def main() -> int:
         "hawkes_mc", lambda: cuda_mc.simulate_hawkesjd_terminal_cuda(7, x0, lp0, lm0, **tp_kw),
         lambda: cuda_mc.simulate_hawkesjd_terminal_torch(7, x0, lp0, lm0, **tp_kw),
         set_time_grid(HAWKES_THROUGHPUT_TTM, HAWKES_STEPS_PER_YEAR)[0])
+    times["logsv_variants"] = _throughput(
+        "logsv_variants (poly-bm)",
+        lambda: mc_variants.run_variant_cuda(7, x0, VARIANT_STEPS, VARIANT_DT, "poly-bm"),
+        lambda: mc_variants.run_variant_torch(7, x0, VARIANT_STEPS, VARIANT_DT, "poly-bm"),
+        VARIANT_STEPS)
 
-    replaces = {"logsv_mc": 142, "heston_mc": 282, "rough_mc": 386, "hawkes_mc": 588}
+    steps = {name: nb_steps for name in cuda_mc.OPS_PER_STEP}
+    steps["hawkes_mc"] = set_time_grid(HAWKES_THROUGHPUT_TTM, HAWKES_STEPS_PER_YEAR)[0]
+    steps["logsv_variants"] = VARIANT_STEPS
+    ops = dict(cuda_mc.OPS_PER_STEP, logsv_variants=mc_variants.OPS_PER_STEP["poly-bm"])
+    bounds = {name: _bound_ms(name, ops[name], NB_PATH, steps[name]) for name in KERNELS}
+    for name in KERNELS:
+        print(f"[roofline] {name} {NB_PATH} paths x {steps[name]} steps: {sum(ops[name])} ops "
+              f"per path-step ({ops[name][0]} float32 + {ops[name][1]} int32), bound "
+              f"{bounds[name][0]:.4f} ms by {bounds[name][1]}, kernel {times[name][0]:.4f} ms: "
+              f"{bounds[name][0] / times[name][0]:.1%} of the bound (-fmad=false: one op per "
+              f"instruction, at most 50% of a peak that counts an FMA as two)", flush=True)
+    replaces = {name: f"stochvolmodels_tpu/ops/pallas_mc.py:{line}" for name, line in
+                (("logsv_mc", 142), ("heston_mc", 282), ("rough_mc", 386), ("hawkes_mc", 588))}
+    replaces["logsv_variants"] = "scripts/bench_pallas_variants.py:86"
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
-        "source": f"stochvolmodels_torch/csrc/{name}.cu",
-        "replaces": f"stochvolmodels_tpu/ops/pallas_mc.py:{replaces[name]}",
+        "source": f"stochvolmodels_torch/csrc/{name}.cu", "replaces": replaces[name],
         "launches": launches[name], "max_abs_err": err[name],
-        "ms": times[name][0], "plain_ms": times[name][1]} for name in KERNELS]}))
+        "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+        "bound_by": bounds[name][1], "library_ms": None} for name in KERNELS]}))
     print(_smi_name_and_power())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

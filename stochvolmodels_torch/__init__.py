@@ -8,8 +8,9 @@ prices through the affine-expansion Fourier engine, BSM implied vols, Monte
 Carlo, and the rough lift's Monte Carlo), for Heston (closed-form Fourier
 prices and Monte Carlo) and for the Hawkes jump-diffusion model (Riccati
 Fourier prices, the risk-premia pricer, and thinning Monte Carlo).  Every Monte-Carlo path loop runs in a hand-written
-CUDA kernel on NVIDIA Hopper.  Every pricer takes its device explicitly
-(``LogSVPricer(device="cuda")``).
+CUDA kernel on NVIDIA Hopper.  Every entry point runs on the card unless the
+caller asks for the CPU (``LogSVPricer(device="cpu")``); without a card, a call
+on the default device raises.
 """
 from stochvolmodels_torch.config import (  # noqa: F401
     OPTION_CODES,

@@ -10,7 +10,8 @@
 // `seed + (p >> 15)` at in-block index `p & 32767` (one (256 x 128)-path
 // block per TPU program), whatever the CUDA launch geometry.  Step `step`
 // draws from streams 0 and 1 (the normals), and the Hawkes kernel also from
-// streams 2-5, with the step index as its salt.
+// streams 2-5, with the step index as its salt; the variant study takes the
+// raw bits of streams 0 and 1 (`stream_bits`).
 #pragma once
 
 #include <cstdint>
@@ -77,13 +78,19 @@ __device__ __forceinline__ void normal_pair(const PathCounter& pc, int step,
   z1 = r * s;
 }
 
-// the (0, 1) uniform of stream `stream` at step `step`; normal_pair draws
+// the uint32 bits of stream `stream` at step `step`; normal_pair draws
 // streams 0 and 1 of the same counter
-__device__ __forceinline__ float stream_uniform(const PathCounter& pc, int step,
+__device__ __forceinline__ uint32_t stream_bits(const PathCounter& pc, int step,
                                                 uint32_t stream) {
   const uint32_t key = hash_u32(pc.seed_term + static_cast<uint32_t>(step) * 0x7FEB352Du +
                                 stream * 0x846CA68Bu);
-  return uniform_from_bits(hash_u32(pc.idx ^ key));
+  return hash_u32(pc.idx ^ key);
+}
+
+// the (0, 1) uniform of stream `stream` at step `step`
+__device__ __forceinline__ float stream_uniform(const PathCounter& pc, int step,
+                                                uint32_t stream) {
+  return uniform_from_bits(stream_bits(pc, step, stream));
 }
 
 // max(x, lo) that keeps a NaN x, as jnp.maximum and torch.clamp do

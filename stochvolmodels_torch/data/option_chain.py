@@ -106,7 +106,7 @@ class OptionChain:
             self.discfactors = np.ones_like(self.ttms)
             self.discount_rates = np.zeros_like(self.ttms)
 
-    def to_grid(self, device="cpu") -> ChainGrid:
+    def to_grid(self, device="cuda") -> ChainGrid:
         """lower to the dense padded panel on ``device``."""
         strikes, mask = npad(self.strikes_ttms, pad_value=np.nan)
         # pad strikes with the row forward: log-moneyness 0, always finite
@@ -163,7 +163,7 @@ class OptionChain:
 
     def compute_model_ivols_from_chain_data(self, model_prices,
                                             forwards: np.ndarray = None,
-                                            device="cpu") -> List[np.ndarray]:
+                                            device="cuda") -> List[np.ndarray]:
         """invert model prices to BSM ivols on ``device``.
 
         ``model_prices`` may be the ragged list or a padded (T, K) panel.

@@ -253,7 +253,7 @@ def hawkesjd_forwards_under_risk_kernel(model_params: HawkesJDParams,
                                         risk_premia_gamma: float,
                                         ttms: np.ndarray,
                                         forwards: np.ndarray,
-                                        device="cpu"
+                                        device="cuda"
                                         ) -> Tuple[np.ndarray, np.ndarray]:
     """normalizers and gamma-forwards from the real MGF at -gamma and
     -gamma - 1, each maturity solved from 0 at 1440 steps/yr.  The two
@@ -388,7 +388,7 @@ def hawkesjd_mc_chain_pricer(ttms: np.ndarray,
                              variable_type: VariableType = VariableType.LOG_RETURN,
                              seed: Optional[int] = None,
                              engine: str = "scan",
-                             device="cpu"
+                             device="cuda"
                              ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
     """chain MC with the state (x, lambda_p, lambda_m) carried across
     maturities; returns ragged (prices, stderrs).

@@ -174,7 +174,7 @@ def logsv_mc_chain_pricer(ttms: np.ndarray,
                           seed: Optional[int] = None,
                           dtype: torch.dtype = torch.float64,
                           engine: str = "scan",
-                          device="cpu"
+                          device="cuda"
                           ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
     """chain MC with the terminal state carried across maturities.
 

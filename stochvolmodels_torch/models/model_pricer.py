@@ -5,8 +5,9 @@ PyTorch counterpart of ``stochvolmodels_tpu/models/model_pricer.py``.  A
 concrete pricer supplies ``price_chain`` (analytic transform pricing) and
 ``model_mc_price_chain``; this base class builds slice and vanilla pricing,
 implied vols and MC confidence bands on top.  Results at the API boundary are
-ragged numpy lists; the tensor work runs on the pricer's ``device``, which the
-caller names (default ``"cpu"``).
+ragged numpy lists; the tensor work runs on the pricer's ``device``: the card
+(``"cuda"``) unless the caller asks for ``"cpu"``.  Without a card a pricer on
+the default device raises at its first tensor; it never falls back to the CPU.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ class ModelParams:
 class ModelPricer(ABC):
     """pricer interface shared by every model; tensors live on ``device``."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.device = torch.device(device)
 
     @abstractmethod

@@ -150,7 +150,7 @@ def rough_logsv_mc_chain_pricer(ttms: np.ndarray,
                                 seed: Optional[int] = None,
                                 dtype: torch.dtype = torch.float64,
                                 engine: str = "scan",
-                                device="cpu"
+                                device="cuda"
                                 ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
     """rough chain MC: (beta, volvol) is reparametrized to (vartheta,
     rho = beta / vartheta), and every slice restarts from t = 0 on the same

@@ -5,11 +5,10 @@ PyTorch counterpart of ``stochvolmodels_tpu/ops/bsm.py``.  Every function is
 elementwise over broadcastable tensors.  Implied volatility is the reference's
 200-iteration bisection on [0.01, 5.0] with NaN at the bounds, run on whole
 panels with a frozen-when-done mask.  Float inputs and numpy arrays become
-float64 tensors on the device of the first tensor argument (CPU if none).
+float64 tensors on the device of the first tensor argument (the card if none).
 """
 from __future__ import annotations
 
-from typing import Optional
 
 import numpy as np
 import torch
@@ -24,7 +23,7 @@ def _device_of(*xs) -> torch.device:
     for x in xs:
         if isinstance(x, torch.Tensor):
             return x.device
-    return torch.device("cpu")
+    return torch.device("cuda")
 
 
 def _f64(x, device: torch.device) -> torch.Tensor:
@@ -33,7 +32,7 @@ def _f64(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, dtype=np.float64), device=device)
 
 
-def as_option_codes(optiontypes, device: Optional[torch.device] = None) -> torch.Tensor:
+def as_option_codes(optiontypes, device: torch.device) -> torch.Tensor:
     """string option types (or already-encoded ints) as an int8 tensor."""
     if isinstance(optiontypes, torch.Tensor):
         return optiontypes.to(torch.int8)

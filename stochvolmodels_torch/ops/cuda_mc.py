@@ -45,6 +45,15 @@ _SIN_C = [float(np.float32(c)) for c in (-0.16666658, 0.008332824, -0.0001981099
                                          2.7525562e-06)]
 _FLT_MIN = 1.1754944e-38
 
+# (float32, 32-bit integer) operations per path-step of each kernel, counted
+# from its source: every arithmetic operator, comparison, select,
+# min/max/abs, int-float conversion and libm call (expf, logf, sqrtf, the
+# division) counts one; negation is free; loop-invariant terms are hoisted;
+# the loop counter is two integer operations.  normal_pair is 46 + 47,
+# rough_mc is counted at 3 nodes.  They set the kernels' roofline bounds.
+OPS_PER_STEP = {"logsv_mc": (78, 49), "heston_mc": (69, 49), "rough_mc": (357, 49),
+                "hawkes_mc": (151, 143)}
+
 
 # --------------------------------------------------------------------------
 # the plain version: uint32 arithmetic carried in int64
@@ -519,7 +528,7 @@ def simulate_rough_terminal_torch(seed: int,
                                   nodes,
                                   weights,
                                   nb_steps_per_year: int = 360,
-                                  device="cpu"
+                                  device="cuda"
                                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """terminal (log-spot, weighted vol, integrated var) of the rough LogSV
     lift by the plain tensor version of the kernel, float32 on ``device``.
@@ -610,7 +619,7 @@ def simulate_rough_terminal_cuda(seed: int,
 simulate_rough_terminal_cuda.launches = 0
 
 
-def simulate_rough_terminal_kernel(seed: int, nb_path: int, device="cpu", **kwargs
+def simulate_rough_terminal_kernel(seed: int, nb_path: int, device="cuda", **kwargs
                                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """the rough chain pricer's path loop: a CUDA ``device`` runs the CUDA
     kernel, the CPU its plain version.  Nothing else dispatches."""

@@ -22,7 +22,7 @@ PHI_POINTS = 1000
 
 
 def get_phi_grid(is_spot_measure: bool = True, max_phi: int = PHI_POINTS,
-                 vol_scaler: float = 0.28, device="cpu",
+                 vol_scaler: float = 0.28, device="cuda",
                  real_phi: Optional[float] = None) -> torch.Tensor:
     """log-price transform grid phi = real_p + i p, p in [0, 5.6/vol_scaler].
 
@@ -45,7 +45,7 @@ def get_phi_grid(is_spot_measure: bool = True, max_phi: int = PHI_POINTS,
 
 def get_transform_var_grid(variable_type: VariableType = VariableType.LOG_RETURN,
                            is_spot_measure: bool = True, max_phi: int = PHI_POINTS,
-                           vol_scaler: float = 0.28, device="cpu",
+                           vol_scaler: float = 0.28, device="cuda",
                            real_phi: Optional[float] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(phi, psi, theta) grids with the two inactive grids zeroed."""

@@ -15,7 +15,7 @@ import torch
 DEFAULT_SEED = 24
 
 
-def generator_from_seed(seed: Optional[int] = None, device="cpu") -> torch.Generator:
+def generator_from_seed(seed: Optional[int] = None, device="cuda") -> torch.Generator:
     """a generator on ``device`` seeded from ``seed`` (None -> 24)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(DEFAULT_SEED if seed is None else int(seed))

@@ -11,7 +11,7 @@ import pytest
 
 from stochvolmodels_torch.ops import _build
 
-KERNELS = ("logsv_mc", "heston_mc", "rough_mc", "hawkes_mc")
+KERNELS = ("logsv_mc", "heston_mc", "rough_mc", "hawkes_mc", "logsv_variants")
 
 
 @pytest.fixture

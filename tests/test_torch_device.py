@@ -1,0 +1,78 @@
+"""The port's entry points run on the card unless the caller asks for the CPU.
+
+(a) no public function, method or class of ``stochvolmodels_torch`` has a
+    ``device`` parameter whose default is the CPU (or ``None``, PyTorch's
+    CPU default): each default names a CUDA device;
+(b) on a PyTorch without CUDA, as here, a call on the default device raises
+    instead of running on the CPU.
+"""
+import importlib
+import inspect
+import pkgutil
+
+import numpy as np
+import pytest
+import torch
+
+import stochvolmodels_torch as svt
+from stochvolmodels_torch.ops import random as port_random
+
+
+def public_callables():
+    """(qualified name, callable) of every public function, class and method
+    defined in the port's modules."""
+    found = {}
+    for info in pkgutil.walk_packages(svt.__path__, prefix="stochvolmodels_torch."):
+        module = importlib.import_module(info.name)
+        for name, obj in vars(module).items():
+            if name.startswith("_") or getattr(obj, "__module__", None) != module.__name__:
+                continue
+            if inspect.isfunction(obj):
+                found[f"{module.__name__}.{name}"] = obj
+            elif inspect.isclass(obj):
+                for attr, member in vars(obj).items():
+                    public = attr == "__init__" or not attr.startswith("_")
+                    if inspect.isfunction(member) and public:
+                        found[f"{module.__name__}.{name}.{attr}"] = member
+    return found
+
+
+def test_no_device_parameter_defaults_to_the_cpu():
+    with_device = {}
+    for name, fn in public_callables().items():
+        param = inspect.signature(fn).parameters.get("device")
+        if param is not None and param.default is not inspect.Parameter.empty:
+            with_device[name] = param.default
+    # the pricers, the chain lowering, the grids, the MC chain pricers, the generator
+    assert len(with_device) >= 12, sorted(with_device)
+    not_cuda = {name: d for name, d in with_device.items()
+                if d is None or torch.device(d).type != "cuda"}
+    assert not not_cuda, not_cuda
+
+
+def default_device_calls():
+    chain = svt.get_btc_test_chain_data()
+    return {
+        "LogSVPricer.price_chain": lambda: svt.LogSVPricer().price_chain(
+            chain, svt.LOGSV_BTC_PARAMS),
+        "HestonPricer.price_chain": lambda: svt.HestonPricer().price_chain(
+            chain, svt.BTC_HESTON_PARAMS),
+        "HawkesJDPricer.model_mc_price_chain": lambda: svt.HawkesJDPricer().model_mc_price_chain(
+            chain, svt.HawkesJDParams(), nb_path=256, engine="cuda"),
+        "OptionChain.to_grid": chain.to_grid,
+        "get_phi_grid": svt.get_phi_grid,
+        "compute_bsm_vanilla_price": lambda: svt.compute_bsm_vanilla_price(
+            np.ones(3), np.ones(3), np.ones(3), np.full(3, 0.5)),
+        "generator_from_seed": lambda: port_random.generator_from_seed(7),
+    }
+
+
+@pytest.mark.parametrize("name", ["LogSVPricer.price_chain", "HestonPricer.price_chain",
+                                  "HawkesJDPricer.model_mc_price_chain", "OptionChain.to_grid",
+                                  "get_phi_grid", "compute_bsm_vanilla_price",
+                                  "generator_from_seed"])
+def test_default_device_call_raises_without_a_card(name):
+    if torch.cuda.is_available():
+        pytest.skip("this PyTorch has a CUDA device: the default device runs")
+    with pytest.raises((AssertionError, RuntimeError)):
+        default_device_calls()[name]()

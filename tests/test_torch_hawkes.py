@@ -91,7 +91,7 @@ def test_riccati_rk4_matches_jax(p_im):
 
 def test_chained_state_and_log_mgf_match_jax():
     pj, pt = hawkes_pair("calm")
-    phi = tmgf.get_phi_grid(max_phi=th.MAX_PHI, vol_scaler=0.1)
+    phi = tmgf.get_phi_grid(device="cpu", max_phi=th.MAX_PHI, vol_scaler=0.1)
     a_t = aj = None
     for dttm in (0.05, 0.1, 0.2):
         a_t, lm_t = th.compute_hawkes_a_mgf_grid(ttm=dttm, phi_grid=phi, model_params=pt, a_t0=a_t)
@@ -139,7 +139,7 @@ def test_put_call_parity():
     strikes = np.linspace(0.7, 1.4, 8) * 67000.0
     f, ttm, df = 67000.0, 0.25, 0.98
     _, pt = hawkes_pair()
-    pricer = svt.HawkesJDPricer()
+    pricer = svt.HawkesJDPricer(device="cpu")
     chain = lambda t: svt.OptionChain.slice_to_chain(ttm=ttm, forward=f, strikes=strikes,
                                                      optiontypes=np.full(8, t), discfactor=df)
     calls = pricer.price_chain(chain("C"), pt)[0]
@@ -152,7 +152,8 @@ def test_forwards_under_risk_kernel_match():
     cj, ct = normalised_chains()
     pj, pt = hawkes_pair(gamma=GAMMA)
     nj, gj = jh.hawkesjd_forwards_under_risk_kernel(pj, GAMMA, cj.ttms, cj.forwards)
-    nt, gt = th.hawkesjd_forwards_under_risk_kernel(pt, GAMMA, ct.ttms, ct.forwards)
+    nt, gt = th.hawkesjd_forwards_under_risk_kernel(pt, GAMMA, ct.ttms, ct.forwards,
+                                                 device="cpu")
     np.testing.assert_allclose(nt, nj, rtol=1e-12)
     np.testing.assert_allclose(gt, gj, rtol=1e-12)
     assert np.all(nt > 0.0) and np.all(gt > 0.0)
@@ -162,7 +163,7 @@ def test_risk_premia_prices_and_ivols_match():
     _, ct = normalised_chains()
     _, pt = hawkes_pair(gamma=GAMMA)
     prices_j, ivols_j = jax_prices_and_vols("btc", GAMMA)
-    prices_t, ivols_t = svt.HawkesJDPricer().compute_chain_prices_with_vols(ct, pt)
+    prices_t, ivols_t = svt.HawkesJDPricer(device="cpu").compute_chain_prices_with_vols(ct, pt)
     for a, b, iv, ivj in zip(prices_t, prices_j, ivols_t, ivols_j):
         assert np.all(np.isfinite(a))
         assert np.max(np.abs(a - np.asarray(b))) <= 1e-10
@@ -174,7 +175,7 @@ def test_gamma_zero_reduces_to_standard_pricer():
     _, ct = normalised_chains()
     _, pt = hawkes_pair()
     _, pt0 = hawkes_pair(gamma=0.0)
-    pricer = svt.HawkesJDPricer()
+    pricer = svt.HawkesJDPricer(device="cpu")
     for a, b in zip(pricer.price_chain(ct, pt0), pricer.price_chain(ct, pt)):
         np.testing.assert_allclose(a, b, rtol=0.0, atol=1e-12)
 
@@ -183,7 +184,7 @@ def test_fast_precision_matches_jax_fast():
     _, ct = btc_chains()
     _, pt = hawkes_pair()
     prices_j, ivols_j = jax_prices_and_vols("btc", precision="fast")
-    pricer = svt.HawkesJDPricer()
+    pricer = svt.HawkesJDPricer(device="cpu")
     for a, b in zip(pricer.price_chain(ct, pt, precision="fast"), prices_j):
         np.testing.assert_allclose(a, np.asarray(b), rtol=1e-4)
     for a, b in zip(pricer.compute_model_ivols_for_chain(ct, pt, precision="fast"), ivols_j):
@@ -196,7 +197,7 @@ def test_fast_precision_matches_jax_fast():
 
 def test_phi_grid_with_real_phi_is_bit_exact():
     for real_phi in (None, -1.0, 0.25):
-        t = tmgf.get_phi_grid(max_phi=th.MAX_PHI, vol_scaler=0.07, real_phi=real_phi)
+        t = tmgf.get_phi_grid(device="cpu", max_phi=th.MAX_PHI, vol_scaler=0.07, real_phi=real_phi)
         j = jmgf.get_phi_grid(max_phi=th.MAX_PHI, vol_scaler=0.07, real_phi=real_phi)
         np.testing.assert_array_equal(t.real.numpy(), np.asarray(j.re))
         np.testing.assert_array_equal(t.imag.numpy(), np.asarray(j.im))
@@ -211,7 +212,7 @@ def test_slice_pricer_with_complex_kernel_matches_jax(real_phi):
     """the payoff kernel is picked from Re phi: real for -1/2, complex else.
     Both packages agree to 1e-13; at -1/2 the price is BSM's to 1e-6 (at
     -0.8 both sit 7.4e-5 above BSM: the JAX package's quadrature there)."""
-    phi = tmgf.get_phi_grid(max_phi=th.MAX_PHI, vol_scaler=0.15, real_phi=real_phi)
+    phi = tmgf.get_phi_grid(device="cpu", max_phi=th.MAX_PHI, vol_scaler=0.15, real_phi=real_phi)
     lm = bsm_log_mgf(phi, 0.6, 0.25)
     strikes = np.linspace(0.6, 1.6, 11)
     types = np.where(strikes >= 1.0, "C", "P")
@@ -229,7 +230,8 @@ def test_slice_pricer_with_complex_kernel_matches_jax(real_phi):
 
 
 def test_gamma_slice_pricer_and_complex_weights_match_jax():
-    phi = tmgf.get_phi_grid(max_phi=th.MAX_PHI, vol_scaler=0.15, real_phi=-0.5 - GAMMA)
+    phi = tmgf.get_phi_grid(device="cpu", max_phi=th.MAX_PHI, vol_scaler=0.15,
+                            real_phi=-0.5 - GAMMA)
     lm = bsm_log_mgf(phi, 0.6, 0.25)
     strikes = np.linspace(0.6, 1.6, 11)
     types = np.where(strikes >= 1.0, "C", "P")
@@ -276,7 +278,7 @@ def test_scan_mc_matches_analytic_on_the_2w_slice():
     _, ct = btc_chains()
     _, pt = hawkes_pair()
     chain0 = svt.OptionChain.get_slices_as_chain(ct, ids=["2w"])
-    pricer = svt.HawkesJDPricer()
+    pricer = svt.HawkesJDPricer(device="cpu")
     a = pricer.price_chain(chain0, pt)[0]
     m, s = pricer.model_mc_price_chain(chain0, pt, nb_path=100000, seed=11)
     tol = 4.0 * s[0] + 0.02 * a + 2e-4 * chain0.forwards[0]
@@ -285,7 +287,7 @@ def test_scan_mc_matches_analytic_on_the_2w_slice():
 
 def test_martingale():
     _, pt = hawkes_pair()
-    x, lam_p, lam_m = svt.HawkesJDPricer().simulate_terminal_values(params=pt, ttm=0.25,
+    x, lam_p, lam_m = svt.HawkesJDPricer(device="cpu").simulate_terminal_values(params=pt, ttm=0.25,
                                                                     nb_path=100000, seed=2)
     assert x.dtype == np.float64 and x.shape == (100000,)
     assert abs(np.mean(np.exp(x)) - 1.0) < 0.01
@@ -318,8 +320,8 @@ def test_pallas_is_an_alias_of_cuda():
     _, pt = hawkes_pair()
     chain0 = svt.OptionChain.get_slices_as_chain(ct, ids=["2w"])
     kw = dict(nb_path=1000, seed=3)
-    a, _ = svt.HawkesJDPricer().model_mc_price_chain(chain0, pt, engine="cuda", **kw)
-    b, _ = svt.HawkesJDPricer().model_mc_price_chain(chain0, pt, engine="pallas", **kw)
+    a, _ = svt.HawkesJDPricer(device="cpu").model_mc_price_chain(chain0, pt, engine="cuda", **kw)
+    b, _ = svt.HawkesJDPricer(device="cpu").model_mc_price_chain(chain0, pt, engine="pallas", **kw)
     np.testing.assert_array_equal(a[0], b[0])
 
 
@@ -339,7 +341,7 @@ def test_params_from_to_dict():
 def test_unported_options_raise():
     _, ct = btc_chains()
     _, pt = hawkes_pair()
-    pricer = svt.HawkesJDPricer()
+    pricer = svt.HawkesJDPricer(device="cpu")
     with pytest.raises(NotImplementedError):
         pricer.model_mc_price_chain(ct, pt, engine="qmc", nb_path=256)
     with pytest.raises(NotImplementedError):

@@ -51,7 +51,7 @@ def first_slices(chain, n):
 @pytest.mark.parametrize("name", sorted(PARAM_SETS))
 def test_mgf_grid_and_chained_riccati_state_match(name):
     p = PARAM_SETS[name]
-    phi = svt.get_phi_grid(vol_scaler=0.25)
+    phi = svt.get_phi_grid(device="cpu", vol_scaler=0.25)
     psi = torch.zeros_like(phi)
     to_cplx = lambda z: Cplx(jnp.asarray(z.real.numpy()), jnp.asarray(z.imag.numpy()))
     out, ref = [], []
@@ -90,7 +90,7 @@ def test_btc_chain_prices_and_ivols_match(name):
 def test_fast_precision_and_vol_scaler(name):
     _, ct = btc_chains()
     _, pt = heston_pair(**PARAM_SETS[name])
-    pricer = svt.HestonPricer()
+    pricer = svt.HestonPricer(device="cpu")
     exact = pricer.price_chain(ct, pt)
     fast = pricer.price_chain(ct, pt, precision="fast")
     scaled = pricer.price_chain(ct, pt, vol_scaler=svt.models.heston.default_vol_scaler(
@@ -106,7 +106,7 @@ def test_put_call_parity():
     strikes = np.linspace(40000.0, 100000.0, 13)
     f, ttm, df = 67000.0, 0.25, 0.98
     _, pt = heston_pair(**PARAM_SETS["test_heston"])
-    pricer = svt.HestonPricer()
+    pricer = svt.HestonPricer(device="cpu")
     chain = lambda t: svt.OptionChain.slice_to_chain(ttm=ttm, forward=f, strikes=strikes,
                                                      optiontypes=np.full(13, t), discfactor=df)
     calls = pricer.price_chain(chain("C"), pt)[0]
@@ -117,7 +117,7 @@ def test_put_call_parity():
 def test_slices_priced_alone_equal_the_chained_chain():
     _, ct = btc_chains()
     _, pt = heston_pair(**PARAM_SETS["test_heston"])
-    pricer = svt.HestonPricer()
+    pricer = svt.HestonPricer(device="cpu")
     full = pricer.price_chain(ct, pt)
     vol_scaler = svt.models.heston.default_vol_scaler(pt.v0, ct.ttms[0])
     for i in range(len(ct.ttms)):
@@ -151,7 +151,7 @@ def test_scan_engine_moments_match_jax_scan():
 
 def test_simulate_terminal_values_moments():
     params = svt.HestonParams(v0=0.04, theta=0.04, kappa=4.0, rho=-0.5, volvol=0.4)
-    x, var, qvar = svt.HestonPricer().simulate_terminal_values(params=params, ttm=1.0,
+    x, var, qvar = svt.HestonPricer(device="cpu").simulate_terminal_values(params=params, ttm=1.0,
                                                                nb_path=1 << 16, seed=3)
     assert x.dtype == np.float64 and x.shape == (1 << 16,)
     assert abs(np.mean(var) - params.theta) < 0.002
@@ -179,8 +179,8 @@ def test_pallas_is_an_alias_of_cuda():
     _, ct = btc_chains()
     _, pt = heston_pair(**PARAM_SETS["btc"])
     kw = dict(nb_path=1000, seed=3)
-    a, _ = svt.HestonPricer().model_mc_price_chain(ct, pt, engine="cuda", **kw)
-    b, _ = svt.HestonPricer().model_mc_price_chain(ct, pt, engine="pallas", **kw)
+    a, _ = svt.HestonPricer(device="cpu").model_mc_price_chain(ct, pt, engine="cuda", **kw)
+    b, _ = svt.HestonPricer(device="cpu").model_mc_price_chain(ct, pt, engine="pallas", **kw)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
 
@@ -202,7 +202,8 @@ def test_mc_engines_match_analytic_prices(engine, nb_path):
 def test_mc_chain_implied_vol_bands():
     _, ct = btc_chains()
     _, pt = heston_pair(**PARAM_SETS["btc"])
-    prices, ups, downs, iv_mid, iv_up, iv_down, _ = svt.HestonPricer().compute_mc_chain_implied_vols(
+    pricer = svt.HestonPricer(device="cpu")
+    prices, ups, downs, iv_mid, iv_up, iv_down, _ = pricer.compute_mc_chain_implied_vols(
         ct, pt, engine="cuda", nb_path=1 << 13, seed=24)
     for p, u, d, im, iu, idn in zip(prices, ups, downs, iv_mid, iv_up, iv_down):
         assert np.all(u >= p) and np.all(d <= p)
@@ -224,8 +225,8 @@ def test_unported_options_raise():
     _, ct = btc_chains()
     _, pt = heston_pair(**PARAM_SETS["btc"])
     with pytest.raises(NotImplementedError):
-        svt.HestonPricer().model_mc_price_chain(ct, pt, engine="qmc", nb_path=256)
+        svt.HestonPricer(device="cpu").model_mc_price_chain(ct, pt, engine="qmc", nb_path=256)
     with pytest.raises(NotImplementedError):
-        svt.HestonPricer().model_mc_price_chain(ct, pt, nb_path=256, antithetic=True)
+        svt.HestonPricer(device="cpu").model_mc_price_chain(ct, pt, nb_path=256, antithetic=True)
     with pytest.raises(NotImplementedError):
-        svt.HestonPricer().price_chain(ct, pt, variable_type=svt.VariableType.Q_VAR)
+        svt.HestonPricer(device="cpu").price_chain(ct, pt, variable_type=svt.VariableType.Q_VAR)

@@ -33,7 +33,7 @@ def test_btc_params_match():
 
 def test_chain_grid_padding_contract():
     cj, ct = btc_chains()
-    gj, gt = cj.to_grid(), ct.to_grid()
+    gj, gt = cj.to_grid(), ct.to_grid(device="cpu")
     for name in ("ttms", "forwards", "discfactors", "strikes", "optioncodes", "mask"):
         np.testing.assert_array_equal(getattr(gt, name).numpy(), np.asarray(getattr(gj, name)))
     moved = gt.to("cpu")
@@ -55,7 +55,7 @@ def test_model_ivols_for_chain(name):
     cj, ct = btc_chains()
     pj, pt = param_pair(**PARAM_SETS[name])
     ref = svj.LogSVPricer().compute_model_ivols_for_chain(cj, pj)
-    out = svt.LogSVPricer().compute_model_ivols_for_chain(ct, pt)
+    out = svt.LogSVPricer(device="cpu").compute_model_ivols_for_chain(ct, pt)
     for a, b in zip(out, ref):
         assert np.all(np.isfinite(a)) and np.all((a > 0.5) & (a < 1.5))
         np.testing.assert_allclose(a, np.asarray(b), rtol=0.0, atol=IVOL_TOL)
@@ -67,10 +67,10 @@ def test_fast_precision_is_f64_at_360_steps():
     cj, ct = btc_chains()
     pj, pt = param_pair(**BTC_PARAMS)
     ref = svj.LogSVPricer().price_chain(cj, pj, year_steps=360)
-    out = svt.LogSVPricer().price_chain(ct, pt, precision="fast")
+    out = svt.LogSVPricer(device="cpu").price_chain(ct, pt, precision="fast")
     _assert_prices(out, ref, ct.forwards)
-    ivols = svt.LogSVPricer().compute_model_ivols_for_chain(ct, pt, precision="fast")
-    exact = svt.LogSVPricer().compute_model_ivols_for_chain(ct, pt)
+    ivols = svt.LogSVPricer(device="cpu").compute_model_ivols_for_chain(ct, pt, precision="fast")
+    exact = svt.LogSVPricer(device="cpu").compute_model_ivols_for_chain(ct, pt)
     for a, b in zip(ivols, exact):
         np.testing.assert_allclose(a, b, rtol=0.0, atol=1e-6)
 
@@ -83,8 +83,8 @@ def test_vol_backbone():
     pt = svt.params_from_numpy(pj.to_dict())
     np.testing.assert_array_equal(pt.get_vol_backbone_etas(ct.ttms),
                                   pj.get_vol_backbone_etas(cj.ttms))
-    _assert_prices(svt.LogSVPricer().price_chain(ct, pt), svj.LogSVPricer().price_chain(cj, pj),
-                   ct.forwards)
+    _assert_prices(svt.LogSVPricer(device="cpu").price_chain(ct, pt),
+                   svj.LogSVPricer().price_chain(cj, pj), ct.forwards)
 
 
 @pytest.mark.parametrize("strike,optiontype", [(1.0, 'C'), (0.8, 'P'), (1.3, 'C')])
@@ -92,6 +92,6 @@ def test_price_vanilla(strike, optiontype):
     pj, pt = param_pair(**README_PARAMS)
     kw = dict(ttm=0.25, forward=1.0, strike=strike, optiontype=optiontype)
     price_j, ivol_j = svj.LogSVPricer().price_vanilla(params=pj, **kw)
-    price_t, ivol_t = svt.LogSVPricer().price_vanilla(params=pt, **kw)
+    price_t, ivol_t = svt.LogSVPricer(device="cpu").price_vanilla(params=pt, **kw)
     assert abs(price_t - float(price_j)) <= PRICE_TOL
     assert abs(ivol_t - float(ivol_j)) <= IVOL_TOL

@@ -41,8 +41,8 @@ def test_pallas_is_an_alias_of_cuda():
     _, ct = btc_chains()
     _, pt = param_pair(**BTC_PARAMS)
     kw = dict(nb_path=1 << 10, nb_steps=30, seed=3)
-    a, _ = svt.LogSVPricer().model_mc_price_chain(ct, pt, engine="cuda", **kw)
-    b, _ = svt.LogSVPricer().model_mc_price_chain(ct, pt, engine="pallas", **kw)
+    a, _ = svt.LogSVPricer(device="cpu").model_mc_price_chain(ct, pt, engine="cuda", **kw)
+    b, _ = svt.LogSVPricer(device="cpu").model_mc_price_chain(ct, pt, engine="pallas", **kw)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
 
@@ -75,9 +75,9 @@ def test_unknown_engine_and_estimators_raise():
     _, ct = btc_chains()
     _, pt = param_pair(**BTC_PARAMS)
     with pytest.raises(NotImplementedError):
-        svt.LogSVPricer().model_mc_price_chain(ct, pt, engine="qmc", nb_path=256)
+        svt.LogSVPricer(device="cpu").model_mc_price_chain(ct, pt, engine="qmc", nb_path=256)
     with pytest.raises(NotImplementedError):
-        svt.LogSVPricer().model_mc_price_chain(ct, pt, nb_path=256, antithetic=True)
+        svt.LogSVPricer(device="cpu").model_mc_price_chain(ct, pt, nb_path=256, antithetic=True)
     with pytest.raises(NotImplementedError):
         svt.compute_mc_vars_payoff(x0=torch.zeros(4), sigma0=None, qvar0=None, ttm=0.1,
                                    forward=1.0,

@@ -35,7 +35,7 @@ def _cplx_to_np(c: Cplx) -> np.ndarray:
 @pytest.mark.parametrize("vol_scaler", [0.28, float(set_vol_scaler(0.8376, 0.0429)), 0.61])
 def test_phi_grid_and_weights_exact(vol_scaler, is_spot_measure):
     gj = jmgf.get_phi_grid(is_spot_measure=is_spot_measure, vol_scaler=vol_scaler)
-    gt = tmgf.get_phi_grid(is_spot_measure=is_spot_measure, vol_scaler=vol_scaler)
+    gt = tmgf.get_phi_grid(device="cpu", is_spot_measure=is_spot_measure, vol_scaler=vol_scaler)
     np.testing.assert_array_equal(gt.numpy(), _cplx_to_np(gj))
     np.testing.assert_array_equal(tmgf.compute_integration_weights(gt).numpy(),
                                   np.asarray(jmgf.compute_integration_weights(gj)))
@@ -80,7 +80,7 @@ def test_solve_a_ode_grid(params, expect_frozen):
     gj = jmgf.get_phi_grid(vol_scaler=vol_scaler)
     zero_j = Cplx(np.zeros(1000), np.zeros(1000))
     aj = _cplx_to_np(jafe.solve_a_ode_grid(gj, zero_j, ttm, year_steps=240, **params))
-    gt = tmgf.get_phi_grid(vol_scaler=vol_scaler)
+    gt = tmgf.get_phi_grid(device="cpu", vol_scaler=vol_scaler)
     at = tafe.solve_a_ode_grid(gt, torch.zeros_like(gt), ttm, year_steps=240, **params).numpy()
 
     frozen_j = np.all((aj.real == 1e6) & (aj.imag == 0.0), axis=1)
@@ -98,7 +98,7 @@ def test_vanilla_prices_with_mgf_grid(is_spot_measure):
     cj, _ = btc_chains()
     p = README_PARAMS
     gj = jmgf.get_phi_grid(is_spot_measure=is_spot_measure, vol_scaler=0.2)
-    gt = tmgf.get_phi_grid(is_spot_measure=is_spot_measure, vol_scaler=0.2)
+    gt = tmgf.get_phi_grid(device="cpu", is_spot_measure=is_spot_measure, vol_scaler=0.2)
     kw = dict(theta=p["theta"], kappa1=p["kappa1"], kappa2=p["kappa2"], beta=p["beta"],
               volvol=p["volvol"], is_spot_measure=is_spot_measure, year_steps=240)
     a = tafe.solve_a_ode_grid(gt, torch.zeros_like(gt), float(cj.ttms[1]), **kw)

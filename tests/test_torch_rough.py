@@ -118,7 +118,8 @@ def rough_path_gaps(n_nodes, n=1 << 16, ttm=0.25):
     kw = dict(KERNEL_KW, ttm=ttm, nodes=nodes, weights=weights)
     xj, vj, yj = map(np.asarray, pallas_mc.simulate_rough_terminal_pallas(
         seed=7, nb_path=n, interpret=True, **kw))
-    xt, vt, yt = (t.numpy() for t in cuda_mc.simulate_rough_terminal_torch(7, n, **kw))
+    xt, vt, yt = (t.numpy() for t in cuda_mc.simulate_rough_terminal_torch(7, n, device="cpu",
+                                                                           **kw))
     return np.abs(xt - xj), np.abs(vt - vj) / vj, np.abs(yt - yj) / yj
 
 
@@ -137,8 +138,9 @@ def test_plain_version_moments_match_scan_engine():
     n, ttm = 1 << 14, 0.25
     nodes, weights = svt.european_rule(0.125, 3, ttm)
     args = dict(sigma0=1.0, theta=1.0, kappa1=2.0, kappa2=2.0, volvol=1.5, rho=0.1,
-                nodes=nodes, weights=weights, ttm=ttm)
+                nodes=nodes, weights=weights, ttm=ttm, device="cpu")
     xt, vt, yt = (t.double().numpy() for t in cuda_mc.simulate_rough_terminal_torch(7, n, **args))
+    args.pop("device")
     log_s, v, y = svt.log_spot_full_combined(nb_path=n, gen=torch.Generator().manual_seed(7),
                                              **args)
     vw = (torch.as_tensor(weights)[:, None] * v).sum(0).numpy()
@@ -157,7 +159,8 @@ def test_cuda_engine_on_cpu_matches_pallas_interpret():
     kw = dict(sigma0=0.8376, theta=1.0413, kappa1=3.1844, kappa2=3.058, beta=0.1514,
               volvol=1.8458, weights=weights, nodes=nodes, nb_path=1 << 14, seed=10)
     ref, ref_std = jsim.rough_logsv_mc_chain_pricer(engine="pallas", **first_slices(cj, 3), **kw)
-    out, out_std = svt.rough_logsv_mc_chain_pricer(engine="cuda", **first_slices(ct, 3), **kw)
+    out, out_std = svt.rough_logsv_mc_chain_pricer(engine="cuda", device="cpu",
+                                                   **first_slices(ct, 3), **kw)
     for a, b, s, st in zip(out, ref, ref_std, out_std):
         assert np.all(np.abs(a - np.asarray(b)) <= 5e-5 * np.asarray(s))
         np.testing.assert_allclose(st, np.asarray(s), rtol=1e-6)
@@ -170,7 +173,7 @@ def test_cuda_engine_restarts_every_slice_on_the_base_seed():
     nodes, weights = lift(2)
     kw = dict(sigma0=0.8376, theta=1.0413, kappa1=3.1844, kappa2=3.058, beta=0.1514,
               volvol=1.8458, weights=weights, nodes=nodes, nb_path=1000, seed=5,
-              nb_steps_per_year=120, engine="cuda")
+              nb_steps_per_year=120, engine="cuda", device="cpu")
     full, _ = svt.rough_logsv_mc_chain_pricer(**first_slices(ct, 3), **kw)
     chain = first_slices(ct, 3)
     alone, _ = svt.rough_logsv_mc_chain_pricer(**{k: v[2:3] for k, v in chain.items()}, **kw)
@@ -197,9 +200,9 @@ def test_rough_h01_ivols_sane():
     _, ct = btc_chains()
     _, pt = param_pair(**BTC_PARAMS, H=0.1)
     pt.approximate_kernel(T=float(np.max(ct.ttms)))
-    mc, _ = svt.LogSVPricer().model_mc_price_chain(ct, pt, nb_path=1 << 14, use_rough_mc=True,
-                                                   seed=10, engine="cuda")
-    for iv in ct.compute_model_ivols_from_chain_data(model_prices=mc):
+    mc, _ = svt.LogSVPricer(device="cpu").model_mc_price_chain(
+        ct, pt, nb_path=1 << 14, use_rough_mc=True, seed=10, engine="cuda")
+    for iv in ct.compute_model_ivols_from_chain_data(model_prices=mc, device="cpu"):
         finite = np.isfinite(iv)
         assert np.mean(finite) > 0.8
         assert np.all((iv[finite] > 0.3) & (iv[finite] < 2.5))
@@ -209,23 +212,23 @@ def test_rough_mc_refusals():
     _, ct = btc_chains()
     _, pt = param_pair(**BTC_PARAMS, H=0.1)
     with pytest.raises(ValueError, match="approximate_kernel"):
-        svt.LogSVPricer().model_mc_price_chain(ct, pt, nb_path=256, use_rough_mc=True)
+        svt.LogSVPricer(device="cpu").model_mc_price_chain(ct, pt, nb_path=256,
+                                                           use_rough_mc=True)
     pt.approximate_kernel(T=0.43)
     with pytest.raises(NotImplementedError):
-        svt.LogSVPricer().model_mc_price_chain(ct, pt, nb_path=256, use_rough_mc=True,
-                                               engine="qmc")
+        svt.LogSVPricer(device="cpu").model_mc_price_chain(ct, pt, nb_path=256,
+                                                           use_rough_mc=True, engine="qmc")
     with pytest.raises(NotImplementedError):
-        svt.LogSVPricer().model_mc_price_chain(ct, pt, nb_path=256, use_rough_mc=True,
-                                               antithetic=True)
-    kw = dict(KERNEL_KW, ttm=0.1)
+        svt.LogSVPricer(device="cpu").model_mc_price_chain(ct, pt, nb_path=256,
+                                                           use_rough_mc=True, antithetic=True)
+    kw = dict(KERNEL_KW, ttm=0.1, device="cpu")
     with pytest.raises(ValueError, match="1..5 nodes"):
         cuda_mc.simulate_rough_terminal_torch(1, 256, nodes=np.ones(6), weights=np.ones(6), **kw)
     with pytest.raises(ValueError, match="multiple of 128"):
         cuda_mc.simulate_rough_terminal_kernel(1, 100, nodes=[1e-3], weights=[1.0], **kw)
     launches = cuda_mc.simulate_rough_terminal_cuda.launches
     with pytest.raises(ValueError, match="CUDA device"):
-        cuda_mc.simulate_rough_terminal_cuda(1, 256, nodes=[1e-3], weights=[1.0], device="cpu",
-                                             **kw)
+        cuda_mc.simulate_rough_terminal_cuda(1, 256, nodes=[1e-3], weights=[1.0], **kw)
     out = cuda_mc.simulate_rough_terminal_kernel(1, 256, nodes=[1e-3], weights=[1.0], **kw)
     ref = cuda_mc.simulate_rough_terminal_torch(1, 256, nodes=[1e-3], weights=[1.0], **kw)
     for a, b in zip(out, ref):
@@ -238,8 +241,8 @@ def test_pallas_is_an_alias_of_cuda():
     _, pt = param_pair(**BTC_PARAMS, H=0.45)
     pt.approximate_kernel(T=0.43)
     kw = dict(nb_path=512, nb_steps=60, seed=3, use_rough_mc=True)
-    a, _ = svt.LogSVPricer().model_mc_price_chain(ct, pt, engine="cuda", **kw)
-    b, _ = svt.LogSVPricer().model_mc_price_chain(ct, pt, engine="pallas", **kw)
+    a, _ = svt.LogSVPricer(device="cpu").model_mc_price_chain(ct, pt, engine="cuda", **kw)
+    b, _ = svt.LogSVPricer(device="cpu").model_mc_price_chain(ct, pt, engine="pallas", **kw)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
 
