@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's serving path, on one CUDA GPU.
 
-    python3 scripts/profile_torch_port.py [--model logsv|hawkes] [--nb-path 1048576]
+    python3 scripts/profile_torch_port.py [--model logsv|hawkes|rough] [--nb-path 1048576]
                                           [--out DIR]
 
 For each warm call of a model's BTC-chain serving path (analytic
 ``price_chain``, ``compute_model_ivols_for_chain``, and the MC chain, bare
-and with implied vols, through the CUDA kernel) it prints one line: host
+and with implied vols, through the CUDA kernel; for ``rough``, the LogSV
+lift at H = 0.1 with 3 nodes, the bare MC chain alone) it prints one line: host
 wall-clock (median of 3 unprofiled calls), device busy time (sum of device
 kernel time of one profiled call, from ``torch.profiler``), the device's idle share
 (1 - busy / wall), the number of device kernels, and the three kernels that
@@ -55,7 +56,7 @@ def _profile(name, fn, out_dir: Path):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("logsv", "hawkes"), default="logsv")
+    parser.add_argument("--model", choices=("logsv", "hawkes", "rough"), default="logsv")
     parser.add_argument("--nb-path", type=int, default=1 << 20)
     parser.add_argument("--out", default="chiprun_out")
     args = parser.parse_args()
@@ -69,21 +70,26 @@ def main() -> int:
     chain = svt.get_btc_test_chain_data()
     if args.model == "hawkes":
         params, pricer, mc_kw = svt.HawkesJDParams(), svt.HawkesJDPricer(device="cuda"), {}
+    elif args.model == "rough":
+        params, pricer = svt.LogSvParams(**{**svt.LOGSV_BTC_PARAMS.to_dict(), "H": 0.1}), \
+            svt.LogSVPricer(device="cuda")
+        params.approximate_kernel(T=float(max(chain.ttms)))
+        mc_kw = dict(use_rough_mc=True)
     else:
         params, pricer = svt.LOGSV_BTC_PARAMS, svt.LogSVPricer(device="cuda")
         mc_kw = dict(nb_steps=360)
     mc_kw.update(engine="cuda", nb_path=args.nb_path, seed=24)
     print(f"device: {torch.cuda.get_device_name(0)}; model {args.model}", flush=True)
     tag = "" if args.model == "logsv" else f"{args.model}_"
-    recs = [
-        _profile(f"{tag}price_chain", lambda: pricer.price_chain(chain, params), out_dir),
-        _profile(f"{tag}compute_model_ivols_for_chain",
-                 lambda: pricer.compute_model_ivols_for_chain(chain, params), out_dir),
-        _profile(f"{tag}model_mc_price_chain",
-                 lambda: pricer.model_mc_price_chain(chain, params, **mc_kw), out_dir),
-        _profile(f"{tag}compute_mc_chain_implied_vols",
-                 lambda: pricer.compute_mc_chain_implied_vols(chain, params, **mc_kw), out_dir),
-    ]
+    calls = {"model_mc_price_chain": lambda: pricer.model_mc_price_chain(chain, params, **mc_kw)}
+    if args.model != "rough":  # the lift is priced by MC only: its bare chain call
+        calls = {"price_chain": lambda: pricer.price_chain(chain, params),
+                 "compute_model_ivols_for_chain":
+                     lambda: pricer.compute_model_ivols_for_chain(chain, params),
+                 **calls,
+                 "compute_mc_chain_implied_vols":
+                     lambda: pricer.compute_mc_chain_implied_vols(chain, params, **mc_kw)}
+    recs = [_profile(f"{tag}{name}", fn, out_dir) for name, fn in calls.items()]
     (out_dir / f"profile_{tag}summary.json").write_text(json.dumps(recs, indent=1))
     return 0
 

@@ -11,7 +11,8 @@
 // block per TPU program), whatever the CUDA launch geometry.  Step `step`
 // draws from streams 0 and 1 (the normals), and the Hawkes kernel also from
 // streams 2-5, with the step index as its salt; the variant study takes the
-// raw bits of streams 0 and 1 (`stream_bits`).
+// raw bits of streams 0 and 1 (`stream_bits`).  The rough and Hawkes kernels
+// draw the same bits through per-block keys (`stream_key`, `bits_from_key`).
 #pragma once
 
 #include <cstdint>
@@ -92,6 +93,69 @@ __device__ __forceinline__ float stream_uniform(const PathCounter& pc, int step,
                                                 uint32_t stream) {
   return uniform_from_bits(stream_bits(pc, step, stream));
 }
+
+// Keyed form of the same stream, for kernels that share keys across a block.
+// The key of (step, stream) depends only on the TPU program (p >> 15), so a
+// CUDA block whose paths lie in one program computes each key once, keeps it
+// in shared memory, and every thread then hashes only its own index.
+
+constexpr int kProgramPaths = 1 << 15;  // paths per TPU program
+
+// (seed + program) * 0x9E3779B9: the seed term of TPU program `program`
+__device__ __forceinline__ uint32_t program_seed_term(uint32_t seed, uint32_t program) {
+  return (seed + program) * 0x9E3779B9u;
+}
+
+// the key of stream `stream` at step `step`: stream_bits(pc, step, stream)
+// equals bits_from_key(pc.idx, stream_key(pc.seed_term, step, stream))
+__device__ __forceinline__ uint32_t stream_key(uint32_t seed_term, int step, uint32_t stream) {
+  return hash_u32(seed_term + static_cast<uint32_t>(step) * 0x7FEB352Du + stream * 0x846CA68Bu);
+}
+
+__device__ __forceinline__ uint32_t bits_from_key(uint32_t idx, uint32_t key) {
+  return hash_u32(idx ^ key);
+}
+
+// normal_pair from the keys of streams 0 and 1
+__device__ __forceinline__ void normal_pair_from_keys(uint32_t idx, uint32_t key0, uint32_t key1,
+                                                      const float* log_c, float& z0, float& z1) {
+  const uint32_t b1 = bits_from_key(idx, key0);
+  const uint32_t b2 = bits_from_key(idx, key1);
+  const float r = sqrtf(fmaxf(-2.0f * poly_log(uniform_from_bits(b1), log_c), 0.0f));
+  const float c = poly_cospi(uniform_from_bits(b2));
+  const float sign = (b2 & 1u) == 0u ? 1.0f : -1.0f;
+  const float s = sign * sqrtf(fmaxf(1.0f - c * c, 0.0f));
+  z0 = r * c;
+  z1 = r * s;
+}
+
+// A ring of per-step keys in shared memory for a block of kThreads threads
+// that lies in one TPU program: row `step % (2 kChunk)` holds the keys of
+// streams 0..kSlots-1 at `step`, kChunk = kThreads / kSlots.  At every step
+// that is a multiple of kChunk the block fills the next kChunk rows, one key
+// per thread, and meets at one barrier.  The two halves of the ring
+// alternate, so a half is refilled only after every thread has passed the
+// barrier that follows its last read of it.  Every thread of the block must
+// call this at the same steps.
+template <int kThreads, int kSlots>
+struct KeyRing {
+  static constexpr int kChunk = kThreads / kSlots;
+  static constexpr int kWords = 2 * kChunk * kSlots;
+  static_assert(kChunk * kSlots == kThreads && (kChunk & (kChunk - 1)) == 0,
+                "kSlots must divide the block into a power-of-two number of steps");
+
+  __device__ __forceinline__ static void fill(uint32_t* ring, uint32_t seed_term, int step0) {
+    const int step = step0 + static_cast<int>(threadIdx.x) / kSlots;
+    const uint32_t stream = threadIdx.x % kSlots;
+    ring[(step & (2 * kChunk - 1)) * kSlots + stream] = stream_key(seed_term, step, stream);
+    __syncthreads();
+  }
+
+  // the keys of `step`; fill(ring, seed_term, step & -kChunk) ran before
+  __device__ __forceinline__ static const uint32_t* row(const uint32_t* ring, int step) {
+    return ring + (step & (2 * kChunk - 1)) * kSlots;
+  }
+};
 
 // max(x, lo) that keeps a NaN x, as jnp.maximum and torch.clamp do
 __device__ __forceinline__ float max_keep_nan(float x, float lo) {

@@ -9,7 +9,12 @@ Counterpart of ``stochvolmodels_tpu/ops/pallas_mc.py`` for ``_logsv_kernel``
 CUDA thread: the random draws come from the murmur3 counter hash over
 (program seed, step, stream, in-block path index) that the TPU kernels use in
 interpret mode (``csrc/counter_rng.cuh``), the state stays in registers, and
-only the terminal state is written back.  For each model:
+only the terminal state is written back.  The rough and Hawkes kernels take
+the per-program keys of that hash from a ring in shared memory; the Hawkes
+kernel skips the logarithms and jump draws that cannot change its result
+(``hawkes_pretest_bound``, ``hawkes_branch_shares``), and the rough kernel's
+drift uses FMA, so it is held to its plain version at 1e-4, the others bit
+for bit.  For each model:
 
 * ``simulate_<model>_terminal_cuda`` launches the kernel; CUDA float32
   tensors only, it raises on anything else, and its ``.launches`` counts
@@ -48,11 +53,30 @@ _FLT_MIN = 1.1754944e-38
 # (float32, 32-bit integer) operations per path-step of each kernel, counted
 # from its source: every arithmetic operator, comparison, select,
 # min/max/abs, int-float conversion and libm call (expf, logf, sqrtf, the
-# division) counts one; negation is free; loop-invariant terms are hoisted;
-# the loop counter is two integer operations.  normal_pair is 46 + 47,
-# rough_mc is counted at 3 nodes.  They set the kernels' roofline bounds.
-OPS_PER_STEP = {"logsv_mc": (78, 49), "heston_mc": (69, 49), "rough_mc": (357, 49),
-                "hawkes_mc": (151, 143)}
+# division) counts one, an explicit FMA two (the peak counts it as two);
+# negation is free; loop-invariant terms are hoisted; the loop counter is two
+# integer operations; a shared-memory load is no operation.  normal_pair is
+# 46 + 47; with its keys read from the block's ring (normal_pair_from_keys)
+# 46 + 28, and the ring's row, its refill test and the loop counter are 6
+# integer operations.  The ring's fill, one key hash per thread per 32 or
+# 128 steps, is below one operation per path-step and not counted.
+# rough_mc is counted at 3 nodes: the normals 46 + 28, the two RK4 half
+# steps 106 + 111 (one w.v carried), the diffusion 15, the floor test and
+# the two remaining dots 11, the log-spot and variance algebra 28.
+# hawkes_mc's entry counts what every path-step runs; HAWKES_BRANCH_OPS adds
+# what its branches run.  They set the kernels' roofline bounds.
+OPS_PER_STEP = {"logsv_mc": (78, 49), "heston_mc": (69, 49), "rough_mc": (317, 34),
+                "hawkes_mc": (76, 54)}
+# operations of a hawkes_mc branch, per path-step that takes it, on each side:
+# "log" is the exact thinning test where the pre-test fails (the polynomial
+# ln, the product and the comparison), "jump" draws the jump size where the
+# jump fires (the hash of the fifth or sixth stream, its uniform and ln, the
+# size).  hawkes_branch_shares measures how often each runs.
+HAWKES_BRANCH_OPS = {"log": (19, 4), "jump": (21, 15)}
+# the thinning pre-test of csrc/hawkes_mc.cu (kPreC, kPreMargin): a jump
+# cannot fire where lambda < ((1 - u) - PRETEST_C) * inv_dt * (1 - PRETEST_MARGIN)
+PRETEST_C = 2e-6
+PRETEST_MARGIN = 1e-6
 
 
 # --------------------------------------------------------------------------
@@ -684,27 +708,91 @@ def simulate_hawkesjd_terminal_torch(seed: int,
     nb_steps, a = _hawkes_args(ttm, mu, sigma, shift_p, mean_p, shift_m, mean_m, theta_p, kappa_p,
                                beta1_p, beta2_p, theta_m, kappa_m, beta1_m, beta2_m,
                                nb_steps_per_year)
+    state = (x0.clone(), lambda_p0.clone(), lambda_m0.clone())
+    for state, _ in _hawkes_steps(seed, *state, nb_steps, a):
+        pass
+    return state
+
+
+class _ThinningDraws(NamedTuple):
+    """a Hawkes step's thinning tests, on each side (p, m): lambda before the
+    step, the test's uniform, and where the jump fired."""
+    lam: Tuple[torch.Tensor, torch.Tensor]
+    u: Tuple[torch.Tensor, torch.Tensor]
+    fired: Tuple[torch.Tensor, torch.Tensor]
+
+
+def _hawkes_steps(seed: int, x: torch.Tensor, lam_p: torch.Tensor, lam_m: torch.Tensor,
+                  nb_steps: int, a: np.ndarray):
+    """the plain version's steps from (x, lambda_p, lambda_m) with the 19
+    scalars ``a`` of :func:`_hawkes_args`: yields, after each step, the state
+    and the step's :class:`_ThinningDraws`."""
     drift_dt = float((a[0] - (np.float32(0.5) * a[1]) * a[1]) * a[16])
     (mu, sigma, shift_p, mean_p, shift_m, mean_m, theta_p, kappa_p, beta1_p, beta2_p, theta_m,
      kappa_m, beta1_m, beta2_m, comp_p_dt, comp_m_dt, dt, sdt, inv_dt) = (float(v) for v in a)
-    rng = _PathNormals(seed, x0.shape[0], x0.device)
-    expo = lambda step, stream: -poly_log(uniform_from_bits(rng.bits(step, stream)))
-    x, lam_p, lam_m = x0.clone(), lambda_p0.clone(), lambda_m0.clone()
+    rng = _PathNormals(seed, x.shape[0], x.device)
+    uniform = lambda step, stream: uniform_from_bits(rng.bits(step, stream))
     for step in range(nb_steps):
-        r = torch.sqrt(torch.clamp(-2.0 * poly_log(uniform_from_bits(rng.bits(step, 0))), min=0.0))
-        z = r * poly_cospi(uniform_from_bits(rng.bits(step, 1)))
-        e_up, e_um, e_jp, e_jm = (expo(step, stream) for stream in (2, 3, 4, 5))
+        r = torch.sqrt(torch.clamp(-2.0 * poly_log(uniform(step, 0)), min=0.0))
+        z = r * poly_cospi(uniform(step, 1))
+        u_up, u_um, u_jp, u_jm = (uniform(step, stream) for stream in (2, 3, 4, 5))
+        e_up, e_um, e_jp, e_jm = (-poly_log(u) for u in (u_up, u_um, u_jp, u_jm))
         j_p = shift_p + e_jp * mean_p
         j_m = shift_m - e_jm * (-mean_m)
         diffusion = ((drift_dt - comp_p_dt * lam_p) - comp_m_dt * lam_m) + sigma * (z * sdt)
-        jump_p = torch.where(lam_p > e_up * inv_dt, j_p, 0.0)
-        jump_m = torch.where(lam_m > e_um * inv_dt, j_m, 0.0)
+        fired = (lam_p > e_up * inv_dt, lam_m > e_um * inv_dt)
+        draws = _ThinningDraws((lam_p, lam_m), (u_up, u_um), fired)
+        jump_p = torch.where(fired[0], j_p, 0.0)
+        jump_m = torch.where(fired[1], j_m, 0.0)
         x = ((x + diffusion) + jump_p) + jump_m
         load_p = beta1_p * jump_p + beta2_p * jump_m
         load_m = beta1_m * jump_p + beta2_m * jump_m
         lam_p = (lam_p + (kappa_p * (theta_p - lam_p)) * dt) + load_p
         lam_m = (lam_m + (kappa_m * (theta_m - lam_m)) * dt) + load_m
-    return x, lam_p, lam_m
+        yield (x, lam_p, lam_m), draws
+
+
+def hawkes_pretest_bound(u: torch.Tensor, inv_dt: float) -> torch.Tensor:
+    """the bound of ``csrc/hawkes_mc.cu``'s thinning pre-test, in its float32
+    arithmetic: ((1 - u) - PRETEST_C) * (inv_dt * (1 - PRETEST_MARGIN))."""
+    f32 = np.float32
+    pre_scale = float(f32(inv_dt) * (f32(1.0) - f32(PRETEST_MARGIN)))
+    return ((1.0 - u) - float(f32(PRETEST_C))) * pre_scale
+
+
+def hawkes_pretest_rules_out(lam: torch.Tensor, u: torch.Tensor, inv_dt: float) -> torch.Tensor:
+    """where the pre-test proves that ``lam > -ln(u) * inv_dt`` cannot fire,
+    so the kernel skips the logarithm: lam < the bound; False for NaN lam."""
+    return lam < hawkes_pretest_bound(u, inv_dt)
+
+
+WARP = 32  # paths a CUDA warp steps together
+
+
+def hawkes_branch_shares(seed: int, x0: torch.Tensor, lambda_p0: torch.Tensor,
+                         lambda_m0: torch.Tensor, ttm: float, nb_steps_per_year: int = 1800,
+                         **params) -> dict:
+    """how often ``csrc/hawkes_mc.cu``'s branches run on these inputs, from the
+    plain version's draws: for each side ``"p"`` and ``"m"``, the share of
+    path-steps whose pre-test fails (``"log"``: the exact test runs) and
+    whose jump fires (``"jump"``), and the same shares of (32-path warp,
+    step) pairs in which some path does (``"warp_log"``, ``"warp_jump"``).
+    ``params`` are the model parameters of simulate_hawkesjd_terminal_torch;
+    nb_path must be a multiple of 32."""
+    _check_paths(x0, lambda_p0, lambda_m0)
+    nb_steps, a = _hawkes_args(ttm, nb_steps_per_year=nb_steps_per_year, **params)
+    inv_dt = float(a[18])
+    counts = {f"{k}_{side}": 0 for k in ("log", "jump", "warp_log", "warp_jump")
+              for side in "pm"}
+    for _, draws in _hawkes_steps(seed, x0, lambda_p0, lambda_m0, nb_steps, a):
+        for side, lam, u, fired in zip("pm", draws.lam, draws.u, draws.fired):
+            log = ~hawkes_pretest_rules_out(lam, u, inv_dt)
+            for name, taken in (("log", log), ("jump", fired)):
+                counts[f"{name}_{side}"] += int(taken.sum())
+                counts[f"warp_{name}_{side}"] += int(taken.view(-1, WARP).any(dim=1).sum())
+    path_steps = x0.shape[0] * nb_steps
+    return {k: v / (path_steps / WARP if k.startswith("warp") else path_steps)
+            for k, v in counts.items()}
 
 
 def simulate_hawkesjd_terminal_cuda(seed: int,

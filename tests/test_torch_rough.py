@@ -248,14 +248,20 @@ def test_pallas_is_an_alias_of_cuda():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("nb_path", [1 << 18, (1 << 16) + 128])
 @pytest.mark.parametrize("n_nodes", [1, 2, 3])
-def test_cuda_kernel_matches_plain_version(cuda_device, n_nodes):  # noqa: F811
+def test_cuda_kernel_matches_plain_version(cuda_device, n_nodes, nb_path):  # noqa: F811
+    """the kernel's drift takes FMAs, the plain version one rounding per
+    operation: measured by chip_smoke.py on an H100 at 2^20 x 91 (3 nodes), max gaps 4.0e-6
+    in x, 2.1e-5 in vw and 2.5e-6 in y, 0.18 of rtol = atol = 1e-4; where
+    the factors nearly cancel in w.v the relative gap in vw reaches 1.5e-4.
+    (1 << 16) + 128 paths leave the last block of 256 half empty."""
     nodes, weights = lift(n_nodes)
     kw = dict(KERNEL_KW, ttm=0.25, nodes=nodes, weights=weights, device=cuda_device)
     launches = cuda_mc.simulate_rough_terminal_cuda.launches
-    out = cuda_mc.simulate_rough_terminal_cuda(9, 1 << 18, **kw)
+    out = cuda_mc.simulate_rough_terminal_cuda(9, nb_path, **kw)
     torch.cuda.synchronize()
     assert cuda_mc.simulate_rough_terminal_cuda.launches == launches + 1
-    ref = cuda_mc.simulate_rough_terminal_torch(9, 1 << 18, **kw)
+    ref = cuda_mc.simulate_rough_terminal_torch(9, nb_path, **kw)
     for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
