@@ -19,8 +19,11 @@ and measures each kernel's throughput against its plain version and its
 roofline bound, with the card's SM clock sampled under each kernel's load,
 the length of its SASS step loop (``scripts/sass_step_loops.py``) and the
 issue floor those give.  The Hawkes kernel must equal its plain version bit
-for bit; the rough kernel, whose drift uses FMA, is held to 1e-4.  Both run
-once more at a path count that leaves their last block half empty.  Each
+for bit; the LogSV, Heston and rough kernels, whose updates use FMA, are
+held to 1e-4 in x and a stated tolerance in the other outputs (LogSV under
+both measures).  The
+four run once more at a path count that leaves their last block half empty,
+bit for bit the first paths of the full run.  Each
 path runs with every launch count set to 0 just before it and read just
 after.  Each phase prints one line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -216,11 +219,12 @@ def _bound_ms(name: str, ops_per_step, nb_path: int, nb_steps: int):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def _vs_plain(name, nb_steps, kernel_out, plain_out, labels, exact=False, atol=0.0) -> float:
+def _vs_plain(name, nb_steps, kernel_out, plain_out, labels, exact=False, rtol=1e-4,
+              atol=0.0) -> float:
     """print and check the kernel's outputs against the plain version's;
     returns the max absolute error.  ``exact``: equal bit for bit.  Else
     |kernel - plain| <= 1e-4 in log-returns x (they start at 0) and
-    <= 1e-4 |plain| + atol in the other outputs."""
+    <= rtol |plain| + atol in the other outputs."""
     torch.cuda.synchronize()
     rels, max_abs = [], 0.0
     for label, k, p in zip(labels, kernel_out, plain_out):
@@ -238,10 +242,10 @@ def _vs_plain(name, nb_steps, kernel_out, plain_out, labels, exact=False, atol=0
         else:
             rel = float((diff / p.abs()).max())
             rels.append(f"{label} max rel {rel:.3e}, max abs {float(diff.max()):.3e}")
-            _check(bool((diff <= 1e-4 * p.abs() + atol).all()),
+            _check(bool((diff <= rtol * p.abs() + atol).all()),
                    f"{name} kernel disagrees with its plain version in {label}: rel {rel}")
     limits = ("equal bit for bit" if exact else
-              "limits 1e-4" + (f", {atol:g} absolute beside 1e-4 relative" if atol else ""))
+              f"limits 1e-4 in x, {rtol:g} relative" + (f" + {atol:g} absolute" if atol else ""))
     print(f"[kernel-vs-plain] {name} {kernel_out[0].shape[0]} paths x {nb_steps} steps: "
           f"{', '.join(rels)} ({limits}); max abs error {max_abs:.3e}", flush=True)
     return max_abs
@@ -313,15 +317,36 @@ def main() -> int:
     mc_kw = dict(ttm=MAIN_TTM, theta=P.theta, kappa1=P.kappa1, kappa2=P.kappa2,
                  beta=P.beta, volvol=P.volvol)
     main_steps = set_time_grid(MAIN_TTM, MC_STEPS_PER_YEAR)[0]
+    # the LogSV and Heston updates use FMA (and LogSV an approximate 1/sigma,
+    # as the TPU kernel does), so LogSV is held as rough_mc is: 1e-4 in x and
+    # 1e-4 |plain| + 1e-4 in sigma and qvar, path by path
+    mc_gate = dict(atol=1e-4)
+    # Heston's v is floored at 1e-4, so its absolute term stays far below the
+    # floor: 1e-4 in x, 1e-5 |plain| + 1e-6 in v and qvar.  Read on an H100 at
+    # these inputs: x 1.2e-6 abs; v 3.3e-6 abs, 1.01e-4 relative only on the
+    # floor (where the gap is ~1e-8), and 8.7e-7 relative beside 1e-6 absolute;
+    # qvar 5.4e-7 abs
+    heston_gate = dict(rtol=1e-5, atol=1e-6)
+    logsv_out = cuda_mc.simulate_logsv_terminal_cuda(7, x0, s0, q0, **mc_kw)
     err = {"logsv_mc": _vs_plain(
-        "logsv_mc", main_steps, cuda_mc.simulate_logsv_terminal_cuda(7, x0, s0, q0, **mc_kw),
-        cuda_mc.simulate_logsv_terminal_torch(7, x0, s0, q0, **mc_kw), ("x", "sigma", "qvar"))}
+        "logsv_mc", main_steps, logsv_out,
+        cuda_mc.simulate_logsv_terminal_torch(7, x0, s0, q0, **mc_kw), ("x", "sigma", "qvar"),
+        **mc_gate)}
+    # the inverse measure, with a backbone eta: adj sigma is nonzero
+    inverse_kw = dict(mc_kw, is_spot_measure=False, vol_backbone_eta=1.1)
+    err["logsv_mc"] = max(err["logsv_mc"], _vs_plain(
+        "logsv_mc (inverse measure, eta 1.1)", main_steps,
+        cuda_mc.simulate_logsv_terminal_cuda(7, x0, s0, q0, **inverse_kw),
+        cuda_mc.simulate_logsv_terminal_torch(7, x0, s0, q0, **inverse_kw),
+        ("x", "sigma", "qvar"), **mc_gate))
     H = svt.BTC_HESTON_PARAMS
     v0 = torch.as_tensor(rng.uniform(0.3, 1.2, NB_PATH).astype(np.float32), device=dev)
     heston_kw = dict(ttm=MAIN_TTM, theta=H.theta, kappa=H.kappa, rho=0.3, volvol=H.volvol)
+    heston_out = cuda_mc.simulate_heston_terminal_cuda(7, x0, v0, q0, **heston_kw)
     err["heston_mc"] = _vs_plain(
-        "heston_mc", main_steps, cuda_mc.simulate_heston_terminal_cuda(7, x0, v0, q0, **heston_kw),
-        cuda_mc.simulate_heston_terminal_torch(7, x0, v0, q0, **heston_kw), ("x", "var", "qvar"))
+        "heston_mc", main_steps, heston_out,
+        cuda_mc.simulate_heston_terminal_torch(7, x0, v0, q0, **heston_kw), ("x", "var", "qvar"),
+        **heston_gate)
     nodes, weights = svt.european_rule(ROUGH_H, ROUGH_NODES, ROUGH_T)
     vartheta = float(np.hypot(P.beta, P.volvol))
     rough_kw = dict(ttm=MAIN_TTM, sigma0=P.sigma0, theta=P.theta, kappa1=P.kappa1,
@@ -347,7 +372,15 @@ def main() -> int:
     # the redesigned kernels with a half-empty last block: against the plain
     # version, and bit for bit against the first ODD_NB_PATH paths of the full run
     odd = [t[:ODD_NB_PATH] for t in (x0, lp0, lm0)]
+    odd_logsv = [t[:ODD_NB_PATH] for t in (x0, s0, q0)]
+    odd_heston = [t[:ODD_NB_PATH] for t in (x0, v0, q0)]
     odd_runs = {
+        "logsv_mc": (cuda_mc.simulate_logsv_terminal_cuda(7, *odd_logsv, **mc_kw),
+                     cuda_mc.simulate_logsv_terminal_torch(7, *odd_logsv, **mc_kw),
+                     logsv_out, ("x", "sigma", "qvar"), mc_gate, main_steps),
+        "heston_mc": (cuda_mc.simulate_heston_terminal_cuda(7, *odd_heston, **heston_kw),
+                      cuda_mc.simulate_heston_terminal_torch(7, *odd_heston, **heston_kw),
+                      heston_out, ("x", "var", "qvar"), heston_gate, main_steps),
         "rough_mc": (cuda_mc.simulate_rough_terminal_cuda(7, ODD_NB_PATH, **rough_kw),
                      cuda_mc.simulate_rough_terminal_torch(7, ODD_NB_PATH, **rough_kw),
                      rough_out, ("x", "vw", "y"), dict(atol=1e-4), main_steps),
@@ -599,10 +632,12 @@ def main() -> int:
     # the issue floor: SASS instructions on the step loop's common path x
     # warp-steps / (SMs x 4 warp-instructions a clock x the SM clock measured under load)
     sass = _load_script("scripts/sass_step_loops.py")
+    # the instances timed above: rough_mc at ROUGH_NODES, poly-bm at run_variant_cuda's unroll 2
     instance = {name: "" for name in KERNELS}
     instance["rough_mc"] = str(ROUGH_NODES)
     instance["logsv_variants"] = f"{mc_variants.VARIANTS.index('poly-bm')},2"
-    steps_per_loop = {name: 2 if name == "logsv_variants" else 1 for name in KERNELS}
+    steps_per_loop = {name: sass.steps_per_pass(name) for name in KERNELS}
+    steps_per_loop["logsv_variants"] = 2
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name in KERNELS:
         total, common, _ = sass.loop_lengths(sass.disassemble(_build._lib_path(name)))[instance[name]]

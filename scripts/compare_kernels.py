@@ -127,6 +127,7 @@ def main() -> int:
     import stochvolmodels_torch as svt
     from stochvolmodels_torch.ops import _build, cuda_mc
     sass = chip_smoke._load_script("scripts/sass_step_loops.py")
+    csrc = {"this": sass.CSRC, "other": args.other.resolve() / "stochvolmodels_torch" / "csrc"}
 
     print(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: "
           f"{chip_smoke._smi_name_and_power()}", flush=True)
@@ -157,16 +158,17 @@ def main() -> int:
               f"{clocks['this']} MHz; outputs {'equal bit for bit' if same else f'max gaps {gaps}'}; "
               f"runs other {[round(t, 4) for t in times['other']]}, this "
               f"{[round(t, 4) for t in times['this']]}", flush=True)
-        timed = "3" if name == "rough_mc" else ""
+        timed = str(chip_smoke.ROUGH_NODES) if name == "rough_mc" else ""
         sms = torch.cuda.get_device_properties(0).multi_processor_count
+        per = {side: sass.steps_per_pass(name, csrc[side]) for side in run}
         for inst in loops["this"]:
-            common = {side: loops[side].get(inst, (0, 0, None))[1] for side in run}
+            loop = {side: loops[side].get(inst, (0, 0, None)) for side in run}
             line = (f"[sass] {name}{'<' + inst + '>' if inst else ''}: step loop other "
-                    f"{loops['other'].get(inst, (0,))[0]} ({common['other']} on its common "
-                    f"path), this {loops['this'][inst][0]} ({common['this']})")
+                    f"{loop['other'][0]} ({loop['other'][1]} on its common path, {per['other']} "
+                    f"step(s) a pass), this {loop['this'][0]} ({loop['this'][1]}, {per['this']})")
             if inst == timed and None not in clocks.values():
-                # common-path instructions x warp-steps / (SMs x 4 a clock x the SM clock)
-                floor = {side: 1e3 * common[side] * (NB_PATH // 32) * nb_steps
+                # common-path instructions a step x warp-steps / (SMs x 4 a clock x the SM clock)
+                floor = {side: 1e3 * loop[side][1] / per[side] * (NB_PATH // 32) * nb_steps
                          / (sms * chip_smoke.ISSUE_PER_SM_CLOCK * clocks[side] * 1e6)
                          for side in run}
                 line += "; issue floor " + ", ".join(

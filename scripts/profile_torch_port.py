@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's serving path, on one CUDA GPU.
 
-    python3 scripts/profile_torch_port.py [--model logsv|hawkes|rough] [--nb-path 1048576]
-                                          [--out DIR]
+    python3 scripts/profile_torch_port.py [--model logsv|heston|hawkes|rough]
+                                          [--nb-path 1048576] [--out DIR]
+                                          [--calls NAME ...]
 
 For each warm call of a model's BTC-chain serving path (analytic
 ``price_chain``, ``compute_model_ivols_for_chain``, and the MC chain, bare
 and with implied vols, through the CUDA kernel; for ``rough``, the LogSV
 lift at H = 0.1 with 3 nodes, the bare MC chain alone) it prints one line: host
-wall-clock (median of 3 unprofiled calls), device busy time (sum of device
+wall-clock (the median of 21 unprofiled calls, each also listed),
+device busy time (sum of device
 kernel time of one profiled call, from ``torch.profiler``), the device's idle share
 (1 - busy / wall), the number of device kernels, and the three kernels that
-take the most device time.  The full ``key_averages`` tables go to ``<out>/``.
+take the most device time.  ``--calls`` keeps only the calls named.  The full
+``key_averages`` tables go to ``<out>/``.
 Exits 1 without a CUDA device.
 """
 import argparse
 import json
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -25,17 +29,21 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+# unprofiled calls per wall: the MC chain walls (~8 ms) are host bound and
+# spread by ~2 ms between runs, so a median of 3 cannot tell two trees apart
+REPEATS = 21
+
 
 def _profile(name, fn, out_dir: Path):
     fn()  # warm
     walls = []
-    for _ in range(3):
+    for _ in range(REPEATS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
-    wall_ms = sorted(walls)[1]
+    wall_ms = statistics.median(walls)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -47,7 +55,7 @@ def _profile(name, fn, out_dir: Path):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
     (out_dir / f"profile_{name}.txt").write_text(table)
-    rec = {"call": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    rec = {"call": name, "wall_ms": wall_ms, "walls_ms": walls, "device_busy_ms": busy_ms,
            "device_idle_share": 1.0 - busy_ms / wall_ms, "kernel_launches": len(events),
            "top_kernels_ms": [[k[:60], v] for k, v in top]}
     print(json.dumps(rec), flush=True)
@@ -56,9 +64,11 @@ def _profile(name, fn, out_dir: Path):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("logsv", "hawkes", "rough"), default="logsv")
+    parser.add_argument("--model", choices=("logsv", "heston", "hawkes", "rough"),
+                        default="logsv")
     parser.add_argument("--nb-path", type=int, default=1 << 20)
     parser.add_argument("--out", default="chiprun_out")
+    parser.add_argument("--calls", nargs="+")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_port: needs a CUDA device", file=sys.stderr)
@@ -70,6 +80,8 @@ def main() -> int:
     chain = svt.get_btc_test_chain_data()
     if args.model == "hawkes":
         params, pricer, mc_kw = svt.HawkesJDParams(), svt.HawkesJDPricer(device="cuda"), {}
+    elif args.model == "heston":
+        params, pricer, mc_kw = svt.BTC_HESTON_PARAMS, svt.HestonPricer(device="cuda"), {}
     elif args.model == "rough":
         params, pricer = svt.LogSvParams(**{**svt.LOGSV_BTC_PARAMS.to_dict(), "H": 0.1}), \
             svt.LogSVPricer(device="cuda")
@@ -89,7 +101,8 @@ def main() -> int:
                  **calls,
                  "compute_mc_chain_implied_vols":
                      lambda: pricer.compute_mc_chain_implied_vols(chain, params, **mc_kw)}
-    recs = [_profile(f"{tag}{name}", fn, out_dir) for name, fn in calls.items()]
+    recs = [_profile(f"{tag}{name}", fn, out_dir) for name, fn in calls.items()
+            if not args.calls or name in args.calls]
     (out_dir / f"profile_{tag}summary.json").write_text(json.dumps(recs, indent=1))
     return 0
 

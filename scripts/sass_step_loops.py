@@ -27,6 +27,15 @@ from typing import Dict, List, Tuple
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 KERNELS = ("logsv_mc", "heston_mc", "rough_mc", "hawkes_mc", "logsv_variants")
+CSRC = Path(__file__).resolve().parents[1] / "stochvolmodels_torch" / "csrc"
+
+
+def steps_per_pass(kernel: str, csrc: Path = CSRC) -> int:
+    """model steps in one pass of a kernel's step loop: the ``kStepsPerPass``
+    that ``<csrc>/<kernel>.cu`` unrolls its loop by, 1 where it has none (the
+    variant study unrolls by its template argument instead)."""
+    m = re.search(r"constexpr int kStepsPerPass = (\d+);", (csrc / f"{kernel}.cu").read_text())
+    return int(m.group(1)) if m else 1
 
 
 def functions(sass: str) -> Dict[str, List[Tuple[int, str]]]:

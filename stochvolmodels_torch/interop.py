@@ -21,20 +21,15 @@ from stochvolmodels_torch.models.logsv.params import LogSvParams
 def params_from_numpy(d: Mapping[str, Any]) -> LogSvParams:
     """LogSvParams from the JAX package's ``LogSvParams.to_dict()``.
 
-    A vol backbone may come as a ``(ttms, etas)`` pair or as any series-like
-    object with ``.index`` and values (a pandas Series), read through numpy.
+    A vol backbone may come as a ``(ttms, etas)`` pair or as a Series-like
+    object (a pandas Series); ``LogSvParams`` reads either.
     """
-    backbone = d.get("vol_backbone")
-    if backbone is not None and hasattr(backbone, "index"):
-        backbone = (np.asarray(backbone.index, dtype=float), np.asarray(backbone, dtype=float))
-    elif backbone is not None:
-        backbone = (np.asarray(backbone[0], dtype=float), np.asarray(backbone[1], dtype=float))
     optional = lambda k: None if d.get(k) is None else np.asarray(d[k], dtype=float)
     return LogSvParams(sigma0=float(d["sigma0"]), theta=float(d["theta"]),
                        kappa1=float(d["kappa1"]),
                        kappa2=None if d.get("kappa2") is None else float(d["kappa2"]),
                        beta=float(d["beta"]), volvol=float(d["volvol"]),
-                       vol_backbone=backbone, H=float(d.get("H", 0.5)),
+                       vol_backbone=d.get("vol_backbone"), H=float(d.get("H", 0.5)),
                        weights=optional("weights"), nodes=optional("nodes"))
 
 

@@ -6,7 +6,10 @@ Parameters of the log-normal beta SV model with quadratic drift
                + beta sigma_t dW0_t + volvol sigma_t dW1_t.
 
 PyTorch-package counterpart of ``stochvolmodels_tpu/models/logsv/params.py``.
-The vol backbone is a pair of numpy arrays ``(ttms, etas)``.
+The vol backbone is held as a pair of numpy arrays ``(ttms, etas)``; it may
+be given as that pair or, as the JAX package takes it, as a series of etas
+indexed by ttm (a pandas Series, read through ``.index`` and ``.to_numpy()``
+so that this package does not import pandas).
 """
 from __future__ import annotations
 
@@ -19,6 +22,18 @@ from stochvolmodels_torch.models.model_pricer import ModelParams
 from stochvolmodels_torch.utils.funcs import find_nearest
 
 
+def _backbone_pair(backbone) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """(ttms, etas) of a vol backbone given as a Series-like object (etas
+    indexed by ttm) or as a (ttms, etas) pair; None stays None."""
+    if backbone is None:
+        return None
+    if hasattr(backbone, "index") and hasattr(backbone, "to_numpy"):
+        ttms, etas = backbone.index, backbone.to_numpy()
+    else:
+        ttms, etas = backbone
+    return np.asarray(ttms, dtype=float), np.asarray(etas, dtype=float)
+
+
 @dataclass
 class LogSvParams(ModelParams):
     """six model parameters, an optional vol backbone and the rough-kernel fields."""
@@ -28,12 +43,13 @@ class LogSvParams(ModelParams):
     kappa2: Optional[float] = 2.5  # None maps to kappa1 / theta
     beta: float = -1.0
     volvol: float = 1.0
-    vol_backbone: Optional[Tuple[np.ndarray, np.ndarray]] = None  # (ttms, etas)
+    vol_backbone: Optional[Tuple[np.ndarray, np.ndarray]] = None  # (ttms, etas), or a Series
     H: float = 0.5
     weights: Optional[np.ndarray] = None
     nodes: Optional[np.ndarray] = None
 
     def __post_init__(self):
+        self.vol_backbone = _backbone_pair(self.vol_backbone)
         if self.kappa2 is None:
             self.kappa2 = self.kappa1 / self.theta
         if not 1e-4 < self.H <= 0.5:
@@ -59,8 +75,10 @@ class LogSvParams(ModelParams):
                 f"kappa1={self.kappa1:0.2f}, kappa2={self.kappa2:0.2f}, "
                 f"beta={self.beta:0.2f}, volvol={self.volvol:0.2f}")
 
-    def set_vol_backbone(self, ttms: np.ndarray, etas: np.ndarray) -> None:
-        self.vol_backbone = (np.asarray(ttms, dtype=float), np.asarray(etas, dtype=float))
+    def set_vol_backbone(self, vol_backbone, etas: Optional[np.ndarray] = None) -> None:
+        """set the backbone from one Series-like ``vol_backbone`` (as the JAX
+        package's setter takes it), or from ttms ``vol_backbone`` and ``etas``."""
+        self.vol_backbone = _backbone_pair(vol_backbone if etas is None else (vol_backbone, etas))
 
     def get_vol_backbone_eta(self, tau: float) -> float:
         """backbone scaling at the nearest quoted maturity at or beyond tau."""

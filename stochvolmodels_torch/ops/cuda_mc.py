@@ -9,12 +9,15 @@ Counterpart of ``stochvolmodels_tpu/ops/pallas_mc.py`` for ``_logsv_kernel``
 CUDA thread: the random draws come from the murmur3 counter hash over
 (program seed, step, stream, in-block path index) that the TPU kernels use in
 interpret mode (``csrc/counter_rng.cuh``), the state stays in registers, and
-only the terminal state is written back.  The rough and Hawkes kernels take
-the per-program keys of that hash from a ring in shared memory; the Hawkes
+only the terminal state is written back.  The kernels take the per-program
+keys of that hash from a ring in shared memory; the LogSV kernel carries
+sigma^2 dt from step to step; the Hawkes
 kernel skips the logarithms and jump draws that cannot change its result
-(``hawkes_pretest_bound``, ``hawkes_branch_shares``), and the rough kernel's
-drift uses FMA, so it is held to its plain version at 1e-4, the others bit
-for bit.  For each model:
+(``hawkes_pretest_bound``, ``hawkes_branch_shares``).  The LogSV, Heston and
+rough kernels' updates use FMA (LogSV also the approximate 1/sigma of the
+TPU kernel), so they are held to their plain versions at 1e-4 in x and a
+stated tolerance in the other outputs (``chip_smoke.py``); the Hawkes
+kernel equals its plain version bit for bit.  For each model:
 
 * ``simulate_<model>_terminal_cuda`` launches the kernel; CUDA float32
   tensors only, it raises on anything else, and its ``.launches`` counts
@@ -59,13 +62,19 @@ _FLT_MIN = 1.1754944e-38
 # 46 + 47; with its keys read from the block's ring (normal_pair_from_keys)
 # 46 + 28, and the ring's row, its refill test and the loop counter are 6
 # integer operations.  The ring's fill, one key hash per thread per 32 or
-# 128 steps, is below one operation per path-step and not counted.
+# 128 steps, is below one operation per path-step and not counted.  Every
+# kernel takes its keys from the ring.
+# logsv_mc: the normals 46 + 28, the Euler step 27 (the increments 2, x 5,
+# the ln sigma drift with its reciprocal and adj sigma 8, ln sigma 6, expf 1,
+# the carried sigma^2 dt 2, qvar 3).
+# heston_mc: the normals 46 + 28, the step 22 (the increments 2, sqrtf 1,
+# v dt 1, x 4, qvar 1, v 9, the floor that keeps NaN 4).
 # rough_mc is counted at 3 nodes: the normals 46 + 28, the two RK4 half
 # steps 106 + 111 (one w.v carried), the diffusion 15, the floor test and
 # the two remaining dots 11, the log-spot and variance algebra 28.
 # hawkes_mc's entry counts what every path-step runs; HAWKES_BRANCH_OPS adds
 # what its branches run.  They set the kernels' roofline bounds.
-OPS_PER_STEP = {"logsv_mc": (78, 49), "heston_mc": (69, 49), "rough_mc": (317, 34),
+OPS_PER_STEP = {"logsv_mc": (73, 34), "heston_mc": (68, 34), "rough_mc": (317, 34),
                 "hawkes_mc": (76, 54)}
 # operations of a hawkes_mc branch, per path-step that takes it, on each side:
 # "log" is the exact thinning test where the pre-test fails (the polynomial

@@ -15,7 +15,8 @@ package's Pallas kernel, and the CUDA kernel against the plain version.
 (c) the wrapper refuses CPU, float64 and misaligned input, and the
     dispatch sends CPU tensors to the plain version without a launch;
 (d) on a CUDA device only: the kernel against the plain version, path by
-    path (it skips here: the kernel has no CPU mode).
+    path, as chip_smoke.py holds it (it skips here: the kernel has no CPU mode;
+    tests/test_torch_kernel_rehearsal.py runs its source on the CPU).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -97,9 +98,13 @@ def test_cuda_wrapper_refuses_cpu_float64_and_misaligned_input():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [1 << 18, (1 << 16) + 128])
 @pytest.mark.parametrize("name", sorted(PARAMS))
-def test_cuda_kernel_matches_plain_version(cuda_device, name):  # noqa: F811
-    n = 1 << 18
+def test_cuda_kernel_matches_plain_version(cuda_device, name, n):  # noqa: F811
+    """within 1e-4 in x and 1e-5 |plain| + 1e-6 in v and qvar (the update's
+    FMAs, as chip_smoke.py holds it), also with a half-empty last block of
+    256 threads.  The kernel's source built for the CPU reads at these inputs
+    at most 7.7e-7 in x and 2.4e-6 in v, 5.4e-7 relative beside 1e-6."""
     state = [torch.as_tensor(a, device=cuda_device) for a in random_state(name, n, seed=5)]
     kw = dict(PARAMS[name], ttm=0.25)
     launches = cuda_mc.simulate_heston_terminal_cuda.launches
@@ -107,5 +112,6 @@ def test_cuda_kernel_matches_plain_version(cuda_device, name):  # noqa: F811
     torch.cuda.synchronize()
     assert cuda_mc.simulate_heston_terminal_cuda.launches == launches + 1
     ref = cuda_mc.simulate_heston_terminal_torch(9, *state, **kw)
-    for a, b in zip(out, ref):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(out[0], ref[0], rtol=0.0, atol=1e-4)
+    for a, b in zip(out[1:], ref[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)

@@ -87,6 +87,35 @@ def test_vol_backbone():
                    svj.LogSVPricer().price_chain(cj, pj), ct.forwards)
 
 
+def test_vol_backbone_setter_takes_a_series():
+    """the JAX package's setter call, one pandas Series, on both packages:
+    the same etas, and the BTC prices and ivols to 1e-12 x forward and 1e-10
+    (measured ~1e-15); the constructor and the two-array form read the same."""
+    cj, ct = btc_chains()
+    series = pd.Series([1.1, 0.95, 1.0, 1.05], index=cj.ttms)
+    pj = svj.LogSvParams(**BTC_PARAMS)
+    pj.set_vol_backbone(series)
+    pt = svt.LogSvParams(**BTC_PARAMS)
+    pt.set_vol_backbone(series)
+    etas = pj.get_vol_backbone_etas(cj.ttms)
+    np.testing.assert_array_equal(pt.get_vol_backbone_etas(ct.ttms), etas)
+    np.testing.assert_array_equal(
+        svt.LogSvParams(**BTC_PARAMS, vol_backbone=series).get_vol_backbone_etas(ct.ttms), etas)
+    pair = svt.LogSvParams(**BTC_PARAMS)
+    pair.set_vol_backbone(cj.ttms, series.to_numpy())
+    np.testing.assert_array_equal(pair.get_vol_backbone_etas(ct.ttms), etas)
+
+    prices_j, ivols_j = svj.LogSVPricer().compute_chain_prices_with_vols(cj, pj)
+    prices_t, ivols_t = svt.LogSVPricer(device="cpu").compute_chain_prices_with_vols(ct, pt)
+    for a, b, f in zip(prices_t, prices_j, ct.forwards):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=0.0, atol=1e-12 * f)
+    for a, b in zip(ivols_t, ivols_j):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=0.0, atol=1e-10)
+    # the backbone moves the prices (by ~7.7e-3 x forward)
+    plain = svt.LogSVPricer(device="cpu").price_chain(ct, svt.LogSvParams(**BTC_PARAMS))
+    assert max(np.max(np.abs(a - b)) / f for a, b, f in zip(prices_t, plain, ct.forwards)) > 1e-3
+
+
 @pytest.mark.parametrize("strike,optiontype", [(1.0, 'C'), (0.8, 'P'), (1.3, 'C')])
 def test_price_vanilla(strike, optiontype):
     pj, pt = param_pair(**README_PARAMS)

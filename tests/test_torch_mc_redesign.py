@@ -19,7 +19,20 @@
     0.00480 and 0.00631 of path-steps.  Limits: warp shares under 0.3 on
     each side, path shares of the exact test under 0.01;
 (c) scripts/sass_step_loops.py finds the step loop and walks its common path
-    (every forward branch inside the loop taken) on a small listing.
+    (every forward branch inside the loop taken) on a small listing, and
+    reads the steps a pass of each kernel's loop holds from the constant
+    its source unrolls the loop by.
+
+The levers of ``csrc/logsv_mc.cu`` and ``csrc/heston_mc.cu`` that change no
+bit of their plain versions (their FMAs do, and are held to 1e-4 on the card):
+
+(d) the LogSV step written in torch, with sigma^2 dt carried from the qvar
+    update to the next step: bit for bit the plain version over 91 steps,
+    both measures;
+(e) the keyed stream: the keys of streams 0 and 1 as the block's KeyRing
+    holds them (filled 128 steps at a time, a row per step), hashed with a
+    path's in-block index, give counter_bits for two TPU programs, at the
+    ring's first and last rows of each half.
 """
 import importlib.util
 import re
@@ -151,3 +164,89 @@ def test_sass_step_loop_and_common_path():
     assert total == 10                 # 0x10 .. 0xa0
     assert common == 7                 # the two FMULs and the CALL skipped
     assert ops["FMUL"] == 2 and ops["BRA"] == 3
+
+
+def test_steps_per_pass_from_the_kernel_sources():
+    sass = _sass_module()
+    per = {name: sass.steps_per_pass(name) for name in ("logsv_mc", "heston_mc", "rough_mc",
+                                                        "hawkes_mc")}
+    assert per == {"logsv_mc": 2, "heston_mc": 2, "rough_mc": 1, "hawkes_mc": 1}
+    for name in ("logsv_mc", "heston_mc"):   # the loop steps by the constant it is read from
+        src = (ROOT / "stochvolmodels_torch" / "csrc" / f"{name}.cu").read_text()
+        assert "step += kStepsPerPass" in src and "j < kStepsPerPass" in src
+
+
+BTC_LOGSV = dict(theta=1.0413, kappa1=3.1844, kappa2=3.058, beta=0.1514, volvol=1.8458)
+
+
+def logsv_kernel_step(seed, x0, sigma0, qvar0, ttm, is_spot_measure, vol_backbone_eta):
+    """terminal (x, sigma, qvar) by csrc/logsv_mc.cu's step on tensors."""
+    p = BTC_LOGSV
+    nb_steps, a = cuda_mc._euler_scalars(ttm, p["theta"], p["kappa1"], p["kappa2"], p["beta"],
+                                         p["volvol"], vol_backbone_eta, is_spot_measure, 360)
+    f32 = np.float32
+    eta2 = float(f32(a.eta) * f32(a.eta))
+    half_vt2 = float(f32(0.5) * (f32(a.beta) * f32(a.beta) + f32(a.volvol) * f32(a.volvol)))
+    alpha_half = float(f32(a.alpha) * f32(0.5))
+    k1theta = float(f32(a.kappa1) * f32(a.theta))
+    normals = cuda_mc._PathNormals(seed, x0.shape[0], x0.device)
+    x, lns, qvar = x0.clone(), torch.log(sigma0), qvar0.clone()
+    sigma = torch.exp(lns)
+    sig2dt = ((eta2 * sigma) * sigma) * a.dt
+    for step in range(nb_steps):
+        z0, z1 = normals.step(step)
+        w0, w1 = z0 * a.sdt, z1 * a.sdt
+        x = (x + alpha_half * sig2dt) + (a.eta * sigma) * w0
+        drift = ((k1theta * torch.reciprocal(sigma) - a.kappa1) + a.kappa2 * (a.theta - sigma)
+                 + a.adj * sigma)
+        lns = ((lns + (drift - half_vt2) * a.dt) + a.beta * w0) + a.volvol * w1
+        sigma = torch.exp(lns)
+        carried = ((eta2 * sigma) * sigma) * a.dt   # the next step's sigma^2 dt
+        qvar = qvar + 0.5 * (sig2dt + carried)
+        sig2dt = carried
+    return x, sigma, qvar
+
+
+@pytest.mark.parametrize("is_spot_measure", [True, False])
+def test_logsv_kernel_step_equals_the_plain_version(is_spot_measure):
+    n = 1 << 12
+    rng = np.random.default_rng(3)
+    state = [torch.as_tensor(a.astype(np.float32)) for a in
+             (rng.normal(0.0, 0.1, n), rng.uniform(0.3, 2.0, n), rng.uniform(0.0, 0.1, n))]
+    kw = dict(ttm=0.25, is_spot_measure=is_spot_measure,
+              vol_backbone_eta=1.0 if is_spot_measure else 1.1)
+    assert set_time_grid(kw["ttm"], 360)[0] == 91
+    out = logsv_kernel_step(4, *state, **kw)
+    ref = cuda_mc.simulate_logsv_terminal_torch(4, *state, **kw, **BTC_LOGSV)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
+RING_CHUNK = 128   # steps per refill of a KeyRing<256, 2>
+
+
+def ring_keys(seed_term: int, step0: int) -> dict:
+    """{ring word: key} after KeyRing<256, 2>::fill(ring, seed_term, step0):
+    thread t writes the key of stream t % 2 at step step0 + t // 2 into row
+    (step & 255)."""
+    out = {}
+    for t in range(2 * RING_CHUNK):
+        step, stream = step0 + t // 2, t % 2
+        word = (seed_term + step * 0x7FEB352D + stream * 0x846CA68B) & 0xFFFFFFFF
+        out[(step & (2 * RING_CHUNK - 1)) * 2 + stream] = int(
+            cuda_mc.hash_u32(torch.tensor(word, dtype=torch.int64)))
+    return out
+
+
+@pytest.mark.parametrize("step", [0, 127, 128, 255])
+def test_keyed_stream_equals_counter_bits(step):
+    idx = torch.arange(cuda_mc.BLOCK_PATHS, dtype=torch.int64)
+    seed = 11
+    for program in (0, 1):
+        seed_term = ((seed + program) * 0x9E3779B9) & 0xFFFFFFFF
+        ring = ring_keys(seed_term, step & -RING_CHUNK)
+        for stream in (0, 1):
+            key = ring[(step & (2 * RING_CHUNK - 1)) * 2 + stream]
+            keyed = cuda_mc.hash_u32(idx ^ key)
+            ref = cuda_mc.counter_bits(torch.tensor(seed + program), step, stream, idx)
+            assert torch.equal(keyed, ref)
