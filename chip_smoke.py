@@ -25,10 +25,19 @@ both measures).  The
 four run once more at a path count that leaves their last block half empty,
 bit for bit the first paths of the full run.  Each
 path runs with every launch count set to 0 just before it and read just
-after.  Each phase prints one line; any failure raises and exits non-zero.
+after.  Then the LogSV calibration on the BTC chain from ``bench.py``'s
+start point: 12 Levenberg-Marquardt iterations through the pricer
+(``method='lm'``) and through ``calibrate_logsv_lm_on_device``, each a
+captured CUDA graph, held bit for bit against the eager fit, with the fit's
+cost and error and ``calib_warm_s`` captured and eager; one SLSQP fit with
+its wall time.  Then the 200-step bisection's graph: the ivols of the LogSV,
+Heston and Hawkes chains and one MC band call, captured and uncaptured,
+equal bit for bit, with their walls and the device kernels per inversion.
+Each phase prints one line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 it exits 1 and prints no result.
 """
+import contextlib
 import importlib.util
 import json
 import re
@@ -71,6 +80,12 @@ STATE_BYTES = {"logsv_mc": 24, "heston_mc": 24, "rough_mc": 12, "hawkes_mc": 24,
                "logsv_variants": 8}
 # H100 SXM at 700 W: float32 outside the tensor cores, and HBM3
 PEAK_OPS_PER_S, PEAK_BYTES_PER_S = 67e12, 3.35e12
+# calibration: bench.py's start point of the LM benchmark, 12 LM iterations,
+# warm walls as medians of 3 calls
+CALIB_PARAMS0 = dict(sigma0=0.8, theta=1.0, kappa1=2.21, kappa2=2.18, beta=0.15, volvol=1.85)
+CALIB_LM_ITERS, CALIB_REPEATS = 12, 3
+# warm repeats of each ivols call, captured and uncaptured
+GRAPH_REPEATS = 5
 
 
 def _check(ok: bool, what: str) -> None:
@@ -281,6 +296,157 @@ def _gpu_vs_cpu(gpu, cpu, chain, params, prices, ivols, what, repeats=5):
     price_ms = _warm_ms(lambda: gpu.price_chain(chain, params), repeats)
     ivol_ms = _warm_ms(lambda: gpu.compute_model_ivols_for_chain(chain, params), repeats)
     return gap, price_ms, ivol_ms
+
+
+def _same(a, b) -> bool:
+    """equal bit for bit: two ragged lists of arrays (NaN where NaN), or two
+    fits (LogSvParams, cost)."""
+    if isinstance(a, (list, tuple)) and isinstance(a[0], np.ndarray):
+        return len(a) == len(b) and all(np.array_equal(x, y, equal_nan=True)
+                                        for x, y in zip(a, b))
+    return repr(a) == repr(b)
+
+
+def _fit_error(pricer, chain, params) -> float:
+    """mean over slices of the mean |model ivol - mid vol| (tests/test_logsv.py's rule)."""
+    ivols = pricer.compute_model_ivols_for_chain(chain, params)
+    return float(np.nanmean([np.nanmean(np.abs(iv - m))
+                             for iv, m in zip(ivols, chain.get_mid_vols())]))
+
+
+def _captured_and_eager(graphs, fn, repeats=CALIB_REPEATS):
+    """(first result, capture s, median warm s captured, median warm s eager):
+    the first call captures the graph; then captured and eager calls in
+    turns (captured, eager, eager, captured, ...), each of which must return
+    the first result bit for bit."""
+    t0 = time.perf_counter()
+    first = fn()
+    capture_s = time.perf_counter() - t0
+    walls = {"captured": [], "eager": []}
+    for i in range(repeats):
+        for mode in (("captured", "eager") if i % 2 == 0 else ("eager", "captured")):
+            with (graphs.eager() if mode == "eager" else contextlib.nullcontext()):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                walls[mode].append(time.perf_counter() - t0)
+            _check(_same(out, first), f"a {mode} call differs from the first captured call: "
+                                      f"{out} vs {first}")
+    return (first, capture_s, statistics.median(walls["captured"]),
+            statistics.median(walls["eager"]))
+
+
+def _calibration_phase(svt, gpu, chain) -> None:
+    """LogSV calibration on the BTC chain from bench.py's params0: the LM fit
+    (one CUDA graph) through the pricer and directly, captured and eager, and
+    one SLSQP fit."""
+    from stochvolmodels_torch.ops import graphs
+
+    smi = _smi_name_and_power()
+    p0 = svt.LogSvParams(**CALIB_PARAMS0)
+    err0 = _fit_error(gpu, chain, p0)
+    fits = {
+        "pricer method='lm' (180 steps/yr)": lambda: (gpu.calibrate_model_params_to_chain(
+            chain, p0, method="lm", nb_iters=CALIB_LM_ITERS), None),
+        "calibrate_logsv_lm_on_device (360 steps/yr)": lambda: svt.calibrate_logsv_lm_on_device(
+            chain, p0, nb_iters=CALIB_LM_ITERS)}
+    for name, fit_fn in fits.items():
+        graphs.REPLAYS.clear()
+        (fit, cost), capture_s, captured_s, eager_s = _captured_and_eager(graphs, fit_fn)
+        replays = graphs.REPLAYS["lm"]
+        _check(replays == 1 + CALIB_REPEATS, f"{name}: {replays} LM graph replays")
+        err = _fit_error(gpu, chain, fit)
+        _check(err < 0.02 and err < err0, f"{name}: fit error {err} (start {err0})")
+        if cost is not None:
+            _check(np.isfinite(cost) and cost < 0.01, f"{name}: LM cost {cost}")
+        print(f"[calibration] {name}, {CALIB_LM_ITERS} LM iterations from bench.py's params0: "
+              f"cost {cost}, mean |ivol - mid| {err:.5f} (start {err0:.5f}); captured fit equal "
+              f"bit for bit to the eager fit; capture (first call) {capture_s:.3f} s; "
+              f"calib_warm_s captured {captured_s:.4f}, eager {eager_s:.4f} (median of "
+              f"{CALIB_REPEATS} warm calls; {replays} graph replays) | {smi}; fit "
+              f"{ {k: round(float(v), 6) for k, v in fit.to_dict().items() if k in CALIB_PARAMS0} }",
+              flush=True)
+    t0 = time.perf_counter()
+    fit = gpu.calibrate_model_params_to_chain(chain, p0)
+    slsqp_s = time.perf_counter() - t0
+    err = _fit_error(gpu, chain, fit)
+    _check(err < 0.03, f"SLSQP PARAMS5 fit error {err}")
+    print(f"[calibration] SLSQP PARAMS5 from bench.py's params0 (RK4 at 720 steps/yr, "
+          f"objective and gradient by torch.autograd): {slsqp_s:.3f} s, nfev "
+          f"{gpu.calibration_result.nfev}, nit {gpu.calibration_result.nit}, objective "
+          f"{gpu.calibration_result.fun:.6e}, mean |ivol - mid| {err:.5f} | {smi}", flush=True)
+
+
+def _launches_per_inversion(svt, graphs, chain, prices) -> dict:
+    """(device kernels, host launch calls) of one chain inversion, captured
+    and eager, counted by torch.profiler: the kernels the device ran, and the
+    runtime calls that launched them (``cudaLaunchKernel``, ``cudaGraphLaunch``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    grid = chain.to_grid(device=DEVICE)
+    panel = torch.as_tensor(svt.npad(prices, pad_value=np.nan)[0], device=DEVICE)
+    invert = lambda: svt.infer_bsm_ivols_from_model_chain_prices(
+        ttms=grid.ttms, forwards=grid.forwards, discfactors=grid.discfactors,
+        strikes_ttms=grid.strikes, optiontypes_ttms=grid.optioncodes, model_prices_ttms=panel)
+    counts = {}
+    for mode in ("captured", "eager"):
+        with (graphs.eager() if mode == "eager" else contextlib.nullcontext()):
+            invert()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                invert()
+                torch.cuda.synchronize()
+            wall_ms = _warm_ms(lambda: invert().cpu(), repeats=11)
+            device_ms = _event_ms(invert, 11)
+        events = prof.events()
+        counts[mode] = (sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
+                        sum(1 for e in events if e.name.startswith(("cudaLaunchKernel",
+                                                                    "cudaGraphLaunch"))),
+                        wall_ms, device_ms)
+    return counts
+
+
+def _graph_phase(svt, chain, gpu, hgpu, kgpu, P, H, HP) -> None:
+    """the 200-step bisection as one CUDA graph per panel shape: the ivols of
+    the LogSV, Heston and Hawkes chains and one MC band call, captured and
+    uncaptured, equal bit for bit, with their walls."""
+    from stochvolmodels_torch.ops import graphs
+
+    smi = _smi_name_and_power()
+    mc_kw = dict(engine="cuda", nb_path=NB_PATH, seed=24, nb_steps=MC_STEPS_PER_YEAR)
+    # (call, inversions a call)
+    calls = {
+        "LogSV compute_model_ivols_for_chain":
+            (lambda: gpu.compute_model_ivols_for_chain(chain, P), 1),
+        "Heston compute_model_ivols_for_chain":
+            (lambda: hgpu.compute_model_ivols_for_chain(chain, H), 1),
+        "Hawkes compute_model_ivols_for_chain":
+            (lambda: kgpu.compute_model_ivols_for_chain(chain, HP), 1),
+        "LogSV compute_mc_chain_implied_vols (3 inversions)":
+            (lambda: [iv for band in gpu.compute_mc_chain_implied_vols(chain, P, **mc_kw)[3:6]
+                      for iv in band], 3)}
+    for name, (fn, inversions) in calls.items():
+        graphs.REPLAYS.clear()
+        out, _, captured_s, eager_s = _captured_and_eager(graphs, fn, repeats=GRAPH_REPEATS)
+        _check(graphs.REPLAYS["bisection"] == inversions * (1 + GRAPH_REPEATS),
+               f"{name}: {graphs.REPLAYS['bisection']} bisection graph replays")
+        for iv in out:
+            _check(np.mean(np.isfinite(iv)) > 0.8, f"{name}: ivols not finite: {iv}")
+        print(f"[graphs] {name}: captured equal bit for bit to uncaptured; wall captured "
+              f"{1e3 * captured_s:.1f} ms, uncaptured {1e3 * eager_s:.1f} ms (median of "
+              f"{GRAPH_REPEATS}); {graphs.REPLAYS['bisection']} bisection graph replays | {smi}",
+              flush=True)
+    counts = _launches_per_inversion(svt, graphs, chain, gpu.price_chain(chain, P))
+    _check(counts["captured"][1] < 20 and counts["eager"][1] > 10000,
+           f"host launch calls per inversion {counts}")
+    cap, unc = counts["captured"], counts["eager"]
+    print(f"[graphs] one chain inversion: device kernels captured {cap[0]}, uncaptured "
+          f"{unc[0]}; host launch calls captured {cap[1]}, uncaptured {unc[1]} "
+          f"(torch.profiler); wall captured {cap[2]:.2f} ms, uncaptured {unc[2]:.2f} ms "
+          f"(median of 11, to the panel on the host); CUDA-event time back to back "
+          f"captured {cap[3]:.2f} ms, uncaptured {unc[3]:.2f} ms (mean of 11) | {smi}",
+          flush=True)
 
 
 def main() -> int:
@@ -651,6 +817,10 @@ def main() -> int:
               f"the peak); SASS step loop {total} instructions, {common} on its common path, per "
               f"{steps_per_loop[name]} step(s); issue floor {floor:.4f} ms at {clock} MHz "
               f"({floor / times[name][0]:.1%} of the kernel time)", flush=True)
+    # 11.-12. calibration and the CUDA graphs of the launch-bound calls
+    _calibration_phase(svt, gpu, chain)
+    _graph_phase(svt, chain, gpu, hgpu, kgpu, P, H, HP)
+
     replaces = {name: f"stochvolmodels_tpu/ops/pallas_mc.py:{line}" for name, line in
                 (("logsv_mc", 142), ("heston_mc", 282), ("rough_mc", 386), ("hawkes_mc", 588))}
     replaces["logsv_variants"] = "scripts/bench_pallas_variants.py:86"

@@ -3,7 +3,7 @@
 
     python3 scripts/profile_torch_port.py [--model logsv|heston|hawkes|rough]
                                           [--nb-path 1048576] [--out DIR]
-                                          [--calls NAME ...]
+                                          [--calls NAME ...] [--eager]
 
 For each warm call of a model's BTC-chain serving path (analytic
 ``price_chain``, ``compute_model_ivols_for_chain``, and the MC chain, bare
@@ -13,11 +13,15 @@ wall-clock (the median of 21 unprofiled calls, each also listed),
 device busy time (sum of device
 kernel time of one profiled call, from ``torch.profiler``), the device's idle share
 (1 - busy / wall), the number of device kernels, and the three kernels that
-take the most device time.  ``--calls`` keeps only the calls named.  The full
-``key_averages`` tables go to ``<out>/``.
-Exits 1 without a CUDA device.
+take the most device time.  ``--calls`` keeps only the calls named;
+``calibrate_lm`` (LogSV only: 12 LM iterations through the pricer from
+``bench.py``'s start point, one captured CUDA graph; 3 unprofiled calls a
+wall) runs only when named.  ``--eager`` runs every call without its CUDA
+graphs (the bisection's and the LM fit's).  The full ``key_averages``
+tables go to ``<out>/``.  Exits 1 without a CUDA device.
 """
 import argparse
+import contextlib
 import json
 import statistics
 import sys
@@ -34,10 +38,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 REPEATS = 21
 
 
-def _profile(name, fn, out_dir: Path):
+def _profile(name, fn, out_dir: Path, repeats: int = REPEATS):
     fn()  # warm
     walls = []
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -69,11 +73,14 @@ def main() -> int:
     parser.add_argument("--nb-path", type=int, default=1 << 20)
     parser.add_argument("--out", default="chiprun_out")
     parser.add_argument("--calls", nargs="+")
+    parser.add_argument("--eager", action="store_true",
+                        help="run without the CUDA graphs of the bisection and the LM fit")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_port: needs a CUDA device", file=sys.stderr)
         return 1
     import stochvolmodels_torch as svt
+    from stochvolmodels_torch.ops import graphs
 
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -91,8 +98,9 @@ def main() -> int:
         params, pricer = svt.LOGSV_BTC_PARAMS, svt.LogSVPricer(device="cuda")
         mc_kw = dict(nb_steps=360)
     mc_kw.update(engine="cuda", nb_path=args.nb_path, seed=24)
-    print(f"device: {torch.cuda.get_device_name(0)}; model {args.model}", flush=True)
-    tag = "" if args.model == "logsv" else f"{args.model}_"
+    print(f"device: {torch.cuda.get_device_name(0)}; model {args.model}; "
+          f"{'eager' if args.eager else 'captured'}", flush=True)
+    tag = ("" if args.model == "logsv" else f"{args.model}_") + ("eager_" if args.eager else "")
     calls = {"model_mc_price_chain": lambda: pricer.model_mc_price_chain(chain, params, **mc_kw)}
     if args.model != "rough":  # the lift is priced by MC only: its bare chain call
         calls = {"price_chain": lambda: pricer.price_chain(chain, params),
@@ -101,8 +109,16 @@ def main() -> int:
                  **calls,
                  "compute_mc_chain_implied_vols":
                      lambda: pricer.compute_mc_chain_implied_vols(chain, params, **mc_kw)}
-    recs = [_profile(f"{tag}{name}", fn, out_dir) for name, fn in calls.items()
-            if not args.calls or name in args.calls]
+    repeats = {}
+    if args.model == "logsv" and args.calls and "calibrate_lm" in args.calls:
+        p0 = svt.LogSvParams(sigma0=0.8, theta=1.0, kappa1=2.21, kappa2=2.18, beta=0.15,
+                             volvol=1.85)
+        calls["calibrate_lm"] = lambda: pricer.calibrate_model_params_to_chain(
+            chain, p0, method="lm", nb_iters=12)
+        repeats["calibrate_lm"] = 3
+    with graphs.eager() if args.eager else contextlib.nullcontext():
+        recs = [_profile(f"{tag}{name}", fn, out_dir, repeats.get(name, REPEATS))
+                for name, fn in calls.items() if not args.calls or name in args.calls]
     (out_dir / f"profile_{tag}summary.json").write_text(json.dumps(recs, indent=1))
     return 0
 

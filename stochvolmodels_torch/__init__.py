@@ -5,7 +5,8 @@ It imports torch, numpy and scipy only — never jax and nothing of the JAX
 package, which stays beside it as the reference the port is tested against.
 It serves pricing requests for the flagship LogSV model (analytic chain
 prices through the affine-expansion Fourier engine, BSM implied vols, Monte
-Carlo, and the rough lift's Monte Carlo), for Heston (closed-form Fourier
+Carlo, the rough lift's Monte Carlo, and calibration to a chain by SLSQP,
+Levenberg-Marquardt as one CUDA graph, or Adam), for Heston (closed-form Fourier
 prices and Monte Carlo) and for the Hawkes jump-diffusion model (Riccati
 Fourier prices, the risk-premia pricer, and thinning Monte Carlo).  Every Monte-Carlo path loop runs in a hand-written
 CUDA kernel on NVIDIA Hopper.  Every entry point runs on the card unless the
@@ -44,9 +45,16 @@ from stochvolmodels_torch.models.logsv.affine import (  # noqa: F401
     get_init_conditions_a,
     solve_a_ode_grid,
 )
+from stochvolmodels_torch.models.logsv.fast_calibration import (  # noqa: F401
+    calibrate_logsv_lm_on_device,
+    calibrate_logsv_on_device,
+)
 from stochvolmodels_torch.models.logsv.params import LogSvParams  # noqa: F401
 from stochvolmodels_torch.models.logsv.pricer import (  # noqa: F401
     LOGSV_BTC_PARAMS,
+    CalibrationEngine,
+    ConstraintsType,
+    LogsvModelCalibrationType,
     LogSVPricer,
     logsv_chain_price_grid,
     logsv_mc_chain_pricer,
@@ -64,6 +72,7 @@ from stochvolmodels_torch.ops.bsm import (  # noqa: F401
     compute_bsm_vanilla_price,
     compute_bsm_vanilla_vega,
     infer_bsm_implied_vol,
+    infer_bsm_implied_vol_fast,
     infer_bsm_ivols_from_model_chain_prices,
 )
 from stochvolmodels_torch.ops.cuda_mc import (  # noqa: F401
@@ -90,5 +99,6 @@ from stochvolmodels_torch.ops.mgf import (  # noqa: F401
     vanilla_prices_with_mgf_grid,
     vanilla_slice_pricer_with_mgf_grid,
 )
+from stochvolmodels_torch.ops.lm import lm_minimize  # noqa: F401
 from stochvolmodels_torch.ops.payoffs import compute_mc_vars_payoff  # noqa: F401
 from stochvolmodels_torch.utils.funcs import find_nearest, npad, set_time_grid, timer, unpad  # noqa: F401

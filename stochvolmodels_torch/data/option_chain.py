@@ -161,6 +161,29 @@ class OptionChain:
                    bid_prices=pick(option_chain.bid_prices),
                    ask_prices=pick(option_chain.ask_prices))
 
+    def get_mid_vols(self) -> Optional[List[np.ndarray]]:
+        """per-slice mid implied vols, the average of bid and ask (None
+        without both)."""
+        if self.bid_ivs is not None and self.ask_ivs is not None:
+            return [0.5 * (b + a) for b, a in zip(self.bid_ivs, self.ask_ivs)]
+        return None
+
+    def get_chain_vegas(self, is_unit_ttm_vega: bool = False) -> List[np.ndarray]:
+        """BSM vegas per slice at the mid vols, the calibration weights; with
+        ``is_unit_ttm_vega`` every slice takes ttm 1.  Numpy in and out: the
+        port's vega runs on host tensors."""
+        ttms = np.ones_like(self.ttms) if is_unit_ttm_vega else self.ttms
+        host = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64))
+        return [bsm.compute_bsm_vanilla_vega(ttm=host(ttm), forward=host(fwd),
+                                             strike=host(strikes), vol=host(vols)).numpy()
+                for ttm, fwd, strikes, vols in zip(ttms, self.forwards, self.strikes_ttms,
+                                                   self.get_mid_vols())]
+
+    def get_chain_atm_vols(self) -> np.ndarray:
+        """ATM vol per slice: the mid vols interpolated to the forward."""
+        return np.array([np.interp(x=forward, xp=strikes, fp=vols) for forward, strikes, vols
+                         in zip(self.forwards, self.strikes_ttms, self.get_mid_vols())])
+
     def compute_model_ivols_from_chain_data(self, model_prices,
                                             forwards: np.ndarray = None,
                                             device="cuda") -> List[np.ndarray]:

@@ -9,14 +9,19 @@ chained across maturities); Monte Carlo runs the Eq. (3.59) Euler scheme,
 either eagerly in float64 (``engine='scan'``) or through the hand-written
 CUDA kernel and its plain version (``engine='cuda'``); the rough lift
 (``use_rough_mc=True``) runs through ``models/rough/simulation.py``.
-Calibration is not ported yet.
+Calibration fits the chain's mid vols with the analytic engine: SLSQP through
+scipy with the objective's gradient from one ``torch.autograd`` backward
+(through the RK4 and the implied-vol inversion), or Levenberg-Marquardt on
+the device (``method='lm'``, ``fast_calibration.py``).
 """
 from __future__ import annotations
 
+from enum import Enum
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+from scipy.optimize import minimize
 
 from stochvolmodels_torch.config import VariableType
 from stochvolmodels_torch.data.option_chain import ChainGrid, OptionChain
@@ -25,22 +30,66 @@ from stochvolmodels_torch.models.logsv.affine import ExpansionOrder
 from stochvolmodels_torch.models.logsv.params import LogSvParams
 from stochvolmodels_torch.models.model_pricer import ModelPricer
 from stochvolmodels_torch.models.rough.simulation import rough_logsv_mc_chain_pricer
-from stochvolmodels_torch.ops import mgf
+from stochvolmodels_torch.ops import bsm, mgf
 from stochvolmodels_torch.ops.cuda_mc import engine_setup, simulate_logsv_terminal_kernel
 from stochvolmodels_torch.ops.payoffs import compute_mc_vars_payoff
 from stochvolmodels_torch.ops.random import generator_from_seed, step_normals
 from stochvolmodels_torch.utils.funcs import set_time_grid, timer
 
+class LogsvModelCalibrationType(Enum):
+    """which parameters the calibration solves for."""
+    PARAMS4 = 1               # sigma0, theta, beta, volvol; kappa1/kappa2 fixed
+    PARAMS5 = 2               # sigma0, theta, kappa1, beta, volvol; kappa2 = kappa1/theta
+    PARAMS6 = 3               # all six
+    PARAMS_WITH_VARSWAP_FIT = 4  # beta, volvol; backbone fit to varswap strikes
+
+
+class ConstraintsType(Enum):
+    """martingale/moment constraints of Theorem 3.7."""
+    UNCONSTRAINT = 1
+    MMA_MARTINGALE = 2           # kappa2 >= beta
+    INVERSE_MARTINGALE = 3       # kappa2 >= 2 beta
+    MMA_MARTINGALE_MOMENT4 = 4
+    INVERSE_MARTINGALE_MOMENT4 = 5
+
+
+class CalibrationEngine(Enum):
+    """model-vol engine inside the calibration objective."""
+    ANALYTIC = 1
+    MC = 2
+    ROUGH_MC = 3
+
+
 LOGSV_BTC_PARAMS = LogSvParams(sigma0=0.8376, theta=1.0413, kappa1=3.1844,
                                kappa2=3.058, beta=0.1514, volvol=1.8458)
 
-# steps per year of the RK4 A(tau) solve for each precision
+# steps per year of the RK4 A(tau) solve for each precision, and in the
+# SLSQP objective (the JAX package's setting there)
 _YEAR_STEPS = {"exact": 240, "fast": 360}
+_SLSQP_YEAR_STEPS = 720
 
 
 def set_vol_scaler(sigma0: float, ttm: float) -> float:
     """transform-grid scaler; lower bound two weeks."""
     return sigma0 * np.sqrt(np.minimum(np.min(ttm), 0.5 / 12.0))
+
+
+def use_float32_default() -> bool:
+    """False: the port's calibration objectives run in float64, the card's
+    native precision (the JAX package defaults to float32 on a TPU, which
+    has no native float64); ``use_float32=`` is accepted and mapped to
+    float64."""
+    return False
+
+
+def _pad_panel(ragged, grid: ChainGrid) -> np.ndarray:
+    """a ragged list of per-slice arrays as a (n_ttm, max_strikes) numpy panel,
+    zero-padded."""
+    t, k = grid.mask.shape
+    out = np.zeros((t, k))
+    for i, a in enumerate(ragged):
+        out[i, :len(np.asarray(a))] = np.asarray(a)
+    return out
 
 
 # ----------------------------------------------------------------------------
@@ -67,7 +116,11 @@ def logsv_chain_price_grid(grid: ChainGrid,
     max_strikes) float64 prices.
 
     The ODE state A is chained across maturities: each slice advances the
-    previous slice's A by ``ttm_i - ttm_{i-1}``.
+    previous slice's A by ``ttm_i - ttm_{i-1}``.  The model parameters and
+    ``vol_scaler`` are Python floats or 0-dim float64 tensors on the grid's
+    device; with tensors the prices carry their gradients (reverse mode) and
+    tangents (``torch.func.jacfwd``), and have the same bits as from floats.
+    The maturities (``ttms_static``) fix the step counts on the host.
     """
     if variable_type != VariableType.LOG_RETURN:
         raise NotImplementedError(f"variable_type={variable_type}")
@@ -86,7 +139,10 @@ def logsv_chain_price_grid(grid: ChainGrid,
     y = sigma0 - theta
     y2 = y * y
     ys = [1.0, y, y2] if expansion_order == ExpansionOrder.FIRST else [1.0, y, y2, y2 * y, y2 * y2]
-    ys = torch.tensor(ys, dtype=torch.float64, device=grid.device)
+    if isinstance(y, torch.Tensor):
+        ys = torch.stack([afe._tensor_of(v, y) for v in ys])
+    else:
+        ys = torch.tensor(ys, dtype=torch.float64, device=grid.device)
     ttm0 = 0.0
     prices = []
     for i, ttm in enumerate(ttms_static):
@@ -245,6 +301,20 @@ class LogSVPricer(ModelPricer):
         package's fast path is mixed precision; the card has native f64).
         ``year_steps=`` overrides; ``exact_engine=`` is accepted and ignored.
         """
+        _, prices = self._price_panel(option_chain, params, is_spot_measure=is_spot_measure,
+                                      variable_type=variable_type,
+                                      expansion_order=expansion_order, vol_scaler=vol_scaler,
+                                      precision=precision, **kwargs)
+        return option_chain.unpad_panel(prices)
+
+    def _price_panel(self, option_chain: OptionChain, params: LogSvParams,
+                     is_spot_measure: bool = True,
+                     variable_type: VariableType = VariableType.LOG_RETURN,
+                     expansion_order: ExpansionOrder = ExpansionOrder.SECOND,
+                     vol_scaler: Optional[float] = None,
+                     precision: str = "exact",
+                     **kwargs) -> Tuple[ChainGrid, torch.Tensor]:
+        """(grid, padded price panel) of :meth:`price_chain`."""
         if precision not in _YEAR_STEPS:
             raise NotImplementedError(f"precision={precision}")
         year_steps = kwargs.pop("year_steps", _YEAR_STEPS[precision])
@@ -261,7 +331,26 @@ class LogSVPricer(ModelPricer):
             ttms_static=tuple(float(t) for t in option_chain.ttms),
             variable_type=variable_type, expansion_order=expansion_order,
             is_spot_measure=is_spot_measure, year_steps=year_steps)
-        return option_chain.unpad_panel(prices)
+        return grid, prices
+
+    def compute_model_ivols_for_chain(self, option_chain: OptionChain, params: LogSvParams,
+                                      precision: str = "exact", **kwargs) -> List[np.ndarray]:
+        """model implied vols for the chain.
+
+        ``precision='exact'`` prices at 240 steps/yr and inverts by the
+        200-step bisection; ``'fast'`` prices at 360 steps/yr (float64) and
+        inverts by the fast implied vol (bisection + Newton), as the JAX
+        package's fused fast path does.
+        """
+        if precision != "fast":
+            return super().compute_model_ivols_for_chain(
+                option_chain=option_chain, params=params, precision=precision, **kwargs)
+        grid, prices = self._price_panel(option_chain, params, precision=precision, **kwargs)
+        vols = bsm.infer_bsm_implied_vol_fast(
+            forward=grid.forwards[:, None], ttm=grid.ttms[:, None], strike=grid.strikes,
+            given_price=prices, discfactor=grid.discfactors[:, None],
+            optiontype=grid.optioncodes)
+        return option_chain.unpad_panel(vols)
 
     @timer
     def model_mc_price_chain(self, option_chain: OptionChain, params: LogSvParams,
@@ -307,3 +396,181 @@ class LogSVPricer(ModelPricer):
             nb_path=nb_path, seed=seed,
             nb_steps_per_year=nb_steps or int(360 * np.max(option_chain.ttms)) + 1,
             engine=kwargs.get("engine", "scan"), device=self.device)
+
+    def set_vol_scaler(self, option_chain: OptionChain) -> float:
+        """grid scaler from the first ATM vol, frozen across calibration
+        iterations."""
+        atm0 = option_chain.get_chain_atm_vols()[0]
+        return set_vol_scaler(sigma0=atm0, ttm=option_chain.ttms[0])
+
+    @timer
+    def calibrate_model_params_to_chain(self,
+                                        option_chain: OptionChain,
+                                        params0: LogSvParams,
+                                        params_min: LogSvParams = LogSvParams(
+                                            sigma0=0.1, theta=0.1, kappa1=0.25,
+                                            kappa2=0.25, beta=-3.0, volvol=0.2),
+                                        params_max: LogSvParams = LogSvParams(
+                                            sigma0=1.5, theta=1.5, kappa1=10.0,
+                                            kappa2=10.0, beta=3.0, volvol=3.0),
+                                        is_vega_weighted: bool = True,
+                                        is_unit_ttm_vega: bool = False,
+                                        model_calibration_type: LogsvModelCalibrationType = LogsvModelCalibrationType.PARAMS5,
+                                        constraints_type: ConstraintsType = ConstraintsType.UNCONSTRAINT,
+                                        calibration_engine: CalibrationEngine = CalibrationEngine.ANALYTIC,
+                                        nb_path: int = 100000,
+                                        nb_steps: int = 360,
+                                        seed: int = 10,
+                                        use_float32: Optional[bool] = None,
+                                        **kwargs) -> LogSvParams:
+        """fit the model to the chain's mid vols: the (vega-weighted) implied
+        vol MSE of Eq. (6.3), under the Theorem 3.7 constraints.
+
+        ``method='slsqp'`` (default): scipy SLSQP with bounds and the
+        constraints as inequality constraints; each evaluation prices the
+        chain with tensor parameters (RK4 at 720 steps per year, the
+        JAX package's setting), inverts by the 200-step bisection and takes
+        the objective's gradient by one ``torch.autograd`` backward on the
+        pricer's device.  NaN model vols drop out of the objective before
+        squaring.  scipy's result is kept as ``self.calibration_result``.
+
+        ``method='lm'``: :func:`calibrate_logsv_lm_on_device` (PARAMS5 only),
+        with ``nb_iters=16`` and ``year_steps=180`` unless given.
+
+        Not ported, and raising ``NotImplementedError``: the ``MC`` and
+        ``ROUGH_MC`` engines (with their fixed-randoms MC) and
+        ``PARAMS_WITH_VARSWAP_FIT`` (it needs ``vol_moments.py``).
+        ``nb_path``, ``nb_steps`` and ``seed`` serve those engines only.
+        ``use_float32`` is accepted and mapped to float64.
+        """
+        del nb_path, nb_steps, seed, use_float32
+        method = kwargs.pop("method", "slsqp")
+        if method not in ("slsqp", "lm"):
+            raise ValueError(f"method must be 'slsqp' or 'lm', got {method!r}")
+        if calibration_engine != CalibrationEngine.ANALYTIC:
+            raise NotImplementedError(
+                f"{calibration_engine}: the MC and ROUGH_MC calibration engines and their "
+                f"fixed-randoms Monte Carlo are not ported; use CalibrationEngine.ANALYTIC")
+        mct = model_calibration_type
+        if mct == LogsvModelCalibrationType.PARAMS_WITH_VARSWAP_FIT:
+            raise NotImplementedError(
+                "PARAMS_WITH_VARSWAP_FIT needs the varswap backbone fit of vol_moments.py, "
+                "which is not ported")
+        if method == "lm":
+            if mct != LogsvModelCalibrationType.PARAMS5:
+                raise NotImplementedError("method='lm' supports the ANALYTIC PARAMS5 calibration")
+            from stochvolmodels_torch.models.logsv.fast_calibration import (
+                calibrate_logsv_lm_on_device)
+            fit, _ = calibrate_logsv_lm_on_device(
+                option_chain=option_chain, params0=params0, constraints_type=constraints_type,
+                is_vega_weighted=is_vega_weighted, params_min=params_min,
+                params_max=params_max, nb_iters=kwargs.pop("nb_iters", 16),
+                year_steps=kwargs.pop("year_steps", 180), device=self.device)
+            return fit
+
+        objective, p0, bounds, constraints, expand = self._slsqp_problem(
+            option_chain, params0, params_min, params_max, is_vega_weighted, is_unit_ttm_vega,
+            mct, constraints_type)
+        options = {"ftol": 1e-8, "maxiter": 200}
+        if constraints:
+            res = minimize(objective, p0, jac=True, method="SLSQP", constraints=constraints,
+                           bounds=bounds, options=options)
+        else:
+            res = minimize(objective, p0, jac=True, method="SLSQP", bounds=bounds,
+                           options=options)
+        self.calibration_result = res
+        sigma0, theta, kappa1, kappa2, beta, volvol = (float(v) for v in expand(res.x))
+        return LogSvParams(sigma0=sigma0, theta=theta, kappa1=kappa1, kappa2=kappa2,
+                           beta=beta, volvol=volvol, H=params0.H, nodes=params0.nodes,
+                           weights=params0.weights)
+
+    def _slsqp_problem(self, option_chain: OptionChain, params0: LogSvParams,
+                       params_min: LogSvParams, params_max: LogSvParams,
+                       is_vega_weighted: bool, is_unit_ttm_vega: bool,
+                       mct: LogsvModelCalibrationType, constraints_type: ConstraintsType):
+        """(objective, p0, bounds, constraints, expand) of the SLSQP fit.
+
+        ``objective(x)`` returns (loss, gradient) as (float, numpy) from one
+        forward and one backward pass on the pricer's device; ``expand(x)``
+        maps the optimizer vector to (sigma0, theta, kappa1, kappa2, beta,
+        volvol); ``constraints`` are scipy's inequality dicts (empty when
+        unconstrained).
+        """
+        vol_scaler = self.set_vol_scaler(option_chain=option_chain)
+        grid = option_chain.to_grid(device=self.device)
+        market_panel = _pad_panel(option_chain.get_mid_vols(), grid)
+        if is_vega_weighted:
+            vegas_ttms = option_chain.get_chain_vegas(is_unit_ttm_vega=is_unit_ttm_vega)
+            weights_panel = _pad_panel([v / np.sum(v) for v in vegas_ttms], grid)
+        else:
+            weights_panel = np.ones_like(market_panel)
+        mask = grid.mask.cpu().numpy()
+        f64 = dict(dtype=torch.float64, device=self.device)
+        weights = torch.as_tensor(np.where(mask, weights_panel, 0.0), **f64)
+        market_vols = torch.as_tensor(np.where(mask, market_panel, 0.0), **f64)
+        ttms_static = tuple(float(t) for t in option_chain.ttms)
+
+        def expand(pars):
+            """(sigma0, theta, kappa1, kappa2, beta, volvol) of the optimizer
+            vector (a numpy array or a tensor)."""
+            if mct == LogsvModelCalibrationType.PARAMS4:
+                return (pars[0], pars[1], params0.kappa1, params0.kappa2, pars[2], pars[3])
+            if mct == LogsvModelCalibrationType.PARAMS5:
+                return (pars[0], pars[1], pars[2], pars[2] / pars[1], pars[3], pars[4])
+            if mct == LogsvModelCalibrationType.PARAMS6:
+                return tuple(pars[i] for i in range(6))
+            raise NotImplementedError(f"{mct}")
+
+        def loss_fn(pars: torch.Tensor) -> torch.Tensor:
+            sigma0, theta, kappa1, kappa2, beta, volvol = expand(pars)
+            prices = logsv_chain_price_grid(
+                grid, sigma0=sigma0, theta=theta, kappa1=kappa1, kappa2=kappa2, beta=beta,
+                volvol=volvol, vol_scaler=vol_scaler, ttms_static=ttms_static,
+                year_steps=_SLSQP_YEAR_STEPS)
+            model_vols = bsm.infer_bsm_ivols_from_model_chain_prices(
+                ttms=grid.ttms, forwards=grid.forwards, discfactors=grid.discfactors,
+                strikes_ttms=grid.strikes, optiontypes_ttms=grid.optioncodes,
+                model_prices_ttms=prices)
+            # mask NaN vols before squaring: where(isnan(r), 0, r) alone would
+            # leave a 0 * NaN = NaN in the backward pass
+            nan_mask = torch.isnan(model_vols)
+            clean = torch.where(nan_mask, market_vols, model_vols)
+            resid = weights * torch.square(clean - market_vols)
+            return torch.sum(torch.where(nan_mask, 0.0, resid))
+
+        def objective(x: np.ndarray):
+            pars = torch.tensor(np.asarray(x, dtype=np.float64), requires_grad=True, **f64)
+            loss = loss_fn(pars)
+            (grad,) = torch.autograd.grad(loss, pars)
+            return float(loss.detach()), grad.cpu().numpy().astype(np.float64)
+
+        names = {LogsvModelCalibrationType.PARAMS4: ("sigma0", "theta", "beta", "volvol"),
+                 LogsvModelCalibrationType.PARAMS5: ("sigma0", "theta", "kappa1", "beta",
+                                                     "volvol"),
+                 LogsvModelCalibrationType.PARAMS6: ("sigma0", "theta", "kappa1", "kappa2",
+                                                     "beta", "volvol")}[mct]
+        p0 = np.array([getattr(params0, k) for k in names], dtype=np.float64)
+        bounds = tuple((getattr(params_min, k), getattr(params_max, k)) for k in names)
+
+        def martingale_measure(x):
+            _, _, _, kappa2, beta, _ = expand(x)
+            return kappa2 - beta
+
+        def inverse_measure(x):
+            _, _, _, kappa2, beta, _ = expand(x)
+            return kappa2 - 2.0 * beta
+
+        def vol_4thmoment_finite(x):
+            _, theta, kappa1, kappa2, beta, volvol = expand(x)
+            kappa = kappa1 + kappa2 * theta
+            return kappa - 1.5 * (beta * beta + volvol * volvol)
+
+        funs = {ConstraintsType.UNCONSTRAINT: (),
+                ConstraintsType.MMA_MARTINGALE: (martingale_measure,),
+                ConstraintsType.INVERSE_MARTINGALE: (inverse_measure,),
+                ConstraintsType.MMA_MARTINGALE_MOMENT4: (martingale_measure,
+                                                         vol_4thmoment_finite),
+                ConstraintsType.INVERSE_MARTINGALE_MOMENT4: (inverse_measure,
+                                                             vol_4thmoment_finite)}
+        constraints = tuple({"type": "ineq", "fun": f} for f in funs[constraints_type])
+        return objective, p0, bounds, constraints, expand

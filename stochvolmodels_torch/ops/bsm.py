@@ -4,17 +4,25 @@ Black-Scholes-Merton prices, vegas and implied volatilities on tensors.
 PyTorch counterpart of ``stochvolmodels_tpu/ops/bsm.py``.  Every function is
 elementwise over broadcastable tensors.  Implied volatility is the reference's
 200-iteration bisection on [0.01, 5.0] with NaN at the bounds, run on whole
-panels with a frozen-when-done mask.  Float inputs and numpy arrays become
-float64 tensors on the device of the first tensor argument (the card if none).
+panels with a frozen-when-done mask; on a CUDA device it replays as one
+captured graph per panel shape (``ops/graphs.py``).  The fast implied vol is
+a 24-step bisection and 4 Newton steps, for calibration objectives.  Both
+inversions are differentiable by the implicit function theorem (d vol / d
+price = 1 / vega): the bisection in reverse mode, the fast one in forward
+mode too, so ``torch.func.jacfwd`` and ``vmap`` go through it.  Float inputs
+and numpy arrays become float64 tensors on the device of the first tensor
+argument (the card if none).
 """
 from __future__ import annotations
 
+import math
 
 import numpy as np
 import torch
 
 from stochvolmodels_torch.config import encode_optiontypes
-from stochvolmodels_torch.ops.gauss import ncdf, npdf
+from stochvolmodels_torch.ops import graphs
+from stochvolmodels_torch.ops.gauss import ERFCC_COEFFS, ncdf, npdf
 
 IV_LOWER, IV_UPPER, IV_TOL = 0.01, 5.0, 1e-16
 
@@ -124,6 +132,192 @@ def _bisection_impl(given_price, forward, strike, ttm, discfactor, is_call_f):
     return torch.where(at_bounds, torch.nan, v1)
 
 
+def _bisection(given_price, forward, strike, ttm, discfactor, is_call_f) -> torch.Tensor:
+    """``_bisection_impl``, through its captured graph on a CUDA device."""
+    inputs = (given_price, forward, strike, ttm, discfactor, is_call_f)
+    if not graphs.use_graph(given_price):
+        return _bisection_impl(*inputs)
+    key = (tuple(given_price.shape), str(given_price.device))
+    return graphs.run_captured("bisection", key, lambda *a: (_bisection_impl(*a),), inputs)[0]
+
+
+def _ncdf_slope(x: torch.Tensor) -> torch.Tensor:
+    """d ncdf / dx of the erfcc approximation itself (not the normal density):
+    what automatic differentiation of :func:`ncdf` gives."""
+    u = x / math.sqrt(2.0)
+    z = torch.abs(u)
+    t = 1.0 / (1.0 + 0.5 * z)
+    # Horner for q(t) = c1 + c2 t + ... + c9 t^8 and its derivative q'(t)
+    q, dq = torch.full_like(t, ERFCC_COEFFS[-1]), torch.zeros_like(t)
+    for c in reversed(ERFCC_COEFFS[1:-1]):
+        dq = dq * t + q
+        q = q * t + c
+    e = torch.exp(-z * z + ERFCC_COEFFS[0] + t * q)
+    dt_dz = -0.5 * t * t
+    dr_dz = dt_dz * e + t * e * (-2.0 * z + (q + t * dq) * dt_dz)
+    # erfcc is r(|u|) for u > 0 and 2 - r(|u|) below, so d erfcc / du = dr/dz
+    return -0.5 * dr_dz / math.sqrt(2.0)
+
+
+def _price_partials(forward, strike, ttm, discfactor, vol, sgn):
+    """(dP/dF, dP/dK, dP/dT, dP/d df, dP/d vol) of the forward price
+    P = df sgn (F N(sgn d1) - K N(sgn d2)), N the erfcc normal CDF, at
+    ``vol``: the gradients that the JAX package takes with ``jax.grad`` of
+    that price in its implicit-function rules."""
+    sq = torch.sqrt(ttm)
+    s = vol * sq
+    x = torch.log(forward / strike)
+    d1 = (x + 0.5 * s * s) / s
+    d2 = d1 - s
+    n1, n2 = ncdf(sgn * d1), ncdf(sgn * d2)
+    g1, g2 = _ncdf_slope(sgn * d1), _ncdf_slope(sgn * d2)
+    # d d1/dx = d d2/dx = 1/s; d d1/ds = 1/2 - x/s^2; d d2/ds = d d1/ds - 1; sgn^2 = 1
+    dp_dx = discfactor * (forward * g1 - strike * g2) / s
+    dd1_ds = 0.5 - x / (s * s)
+    dp_ds = discfactor * (forward * g1 * dd1_ds - strike * g2 * (dd1_ds - 1.0))
+    dp_df = discfactor * sgn * n1 + dp_dx / forward
+    dp_dk = -discfactor * sgn * n2 - dp_dx / strike
+    dp_dt = dp_ds * vol * 0.5 / sq
+    dp_ddisc = sgn * (forward * n1 - strike * n2)
+    return dp_df, dp_dk, dp_dt, dp_ddisc, dp_ds * sq
+
+
+def _inverse_vega_and_partials(vol, forward, strike, ttm, discfactor, sgn, vega_floor):
+    """(1/vega, 0 where vol is NaN or |vega| < vega_floor) and the price
+    partials in F, K, T and df, at the safe vol (1 where vol is NaN)."""
+    safe_vol = torch.where(torch.isnan(vol), 1.0, vol)
+    dp_df, dp_dk, dp_dt, dp_ddisc, vega = _price_partials(
+        forward, strike, ttm, discfactor, safe_vol, sgn)
+    inv_vega = torch.where(torch.isnan(vol) | (torch.abs(vega) < vega_floor), 0.0, 1.0 / vega)
+    return inv_vega, (dp_df, dp_dk, dp_dt, dp_ddisc)
+
+
+class _ImpliedVolCore(torch.autograd.Function):
+    """the 200-step bisection with the implicit-function gradient in reverse
+    mode.  Its forward replays a captured graph on the card, which cannot run
+    inside a ``torch.func`` transform: this Function defines no vmap rule and
+    no forward-mode rule, so such a transform raises."""
+
+    @staticmethod
+    def forward(ctx, given_price, forward, strike, ttm, discfactor, is_call_f):
+        vol = _bisection(given_price, forward, strike, ttm, discfactor, is_call_f)
+        ctx.save_for_backward(vol, forward, strike, ttm, discfactor, is_call_f)
+        return vol
+
+    @staticmethod
+    def backward(ctx, grad):
+        vol, forward, strike, ttm, discfactor, sgn = ctx.saved_tensors
+        inv_vega, partials = _inverse_vega_and_partials(vol, forward, strike, ttm,
+                                                         discfactor, sgn, 1e-300)
+        gv = grad * inv_vega
+        return (gv,) + tuple(-gv * d for d in partials) + (None,)
+
+
+def _fast_iv_impl(given_price, forward, strike, ttm, discfactor, sgn,
+                  nb_bisect: int, nb_newton: int) -> torch.Tensor:
+    """a short bisection on [0.01, 5.0] and a Newton polish, NaN where the
+    price is not bracketed (the JAX package's ``_fast_iv_impl``)."""
+    def price_at(vol):
+        s_ttm = vol * torch.sqrt(ttm)
+        d1 = (torch.log(forward / strike) + 0.5 * s_ttm * s_ttm) / s_ttm
+        d2 = d1 - s_ttm
+        return discfactor * sgn * (forward * ncdf(sgn * d1) - strike * ncdf(sgn * d2))
+
+    lo = torch.full_like(given_price, IV_LOWER)
+    hi = torch.full_like(given_price, IV_UPPER)
+    bracketed = (price_at(lo) - given_price) * (price_at(hi) - given_price) < 0.0
+    # unbracketed (or NaN) quotes are replaced by a solvable dummy before the
+    # solver, so no NaN circulates; their output is NaN all the same
+    given_price = torch.where(bracketed, given_price, price_at(torch.ones_like(lo)))
+    f_lo = price_at(lo) - given_price
+    for _ in range(nb_bisect):
+        mid = 0.5 * (lo + hi)
+        go_up = (price_at(mid) - given_price) * f_lo > 0.0   # same sign as lo: root above
+        lo, hi = torch.where(go_up, mid, lo), torch.where(go_up, hi, mid)
+    vol = 0.5 * (lo + hi)
+    for _ in range(nb_newton):
+        s_ttm = vol * torch.sqrt(ttm)
+        d1 = torch.log(forward / strike) / s_ttm + 0.5 * s_ttm
+        vega = discfactor * forward * npdf(d1) * torch.sqrt(ttm)
+        step = (price_at(vol) - given_price) / torch.clamp(vega, min=1e-12)
+        vol = torch.clamp(vol - step, IV_LOWER, IV_UPPER)
+    return torch.where(bracketed, vol, torch.nan)
+
+
+class _FastIVCore(torch.autograd.Function):
+    """the fast implied vol with the implicit-function tangent rule
+
+        dvol = (dP - dP/dF dF - dP/dK dK - dP/dT dT - dP/d df d df) / vega,
+
+    vega floored at 1e-12 x forward (0 where the vol is NaN), in forward mode
+    (``jvp``) and transposed in reverse mode (``backward``).  Differentiating
+    through the Newton polish instead would compound 1/vega four times."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(given_price, forward, strike, ttm, discfactor, sgn, nb_bisect, nb_newton):
+        return _fast_iv_impl(given_price, forward, strike, ttm, discfactor, sgn,
+                             nb_bisect, nb_newton)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, forward, strike, ttm, discfactor, sgn, _, _ = inputs
+        ctx.save_for_forward(output, forward, strike, ttm, discfactor, sgn)
+        ctx.save_for_backward(output, forward, strike, ttm, discfactor, sgn)
+
+    @staticmethod
+    def _rule(ctx):
+        vol, forward, strike, ttm, discfactor, sgn = ctx.saved_tensors
+        return _inverse_vega_and_partials(vol, forward, strike, ttm, discfactor, sgn,
+                                          1e-12 * forward)
+
+    @staticmethod
+    def jvp(ctx, d_price, d_forward, d_strike, d_ttm, d_disc, _d_sgn, _nb_bisect, _nb_newton):
+        inv_vega, partials = _FastIVCore._rule(ctx)
+        dvol = d_price if d_price is not None else torch.zeros_like(inv_vega)
+        for d, partial in zip((d_forward, d_strike, d_ttm, d_disc), partials):
+            if d is not None:
+                dvol = dvol - partial * d
+        return inv_vega * dvol
+
+    @staticmethod
+    def backward(ctx, grad):
+        inv_vega, partials = _FastIVCore._rule(ctx)
+        gv = grad * inv_vega
+        return (gv,) + tuple(-gv * d for d in partials) + (None, None, None)
+
+
+def _broadcast_inputs(forward, ttm, strike, given_price, discfactor, optiontype):
+    """the inputs as float64 tensors of one broadcast shape on one device,
+    and the option signs (1.0 for calls, -1.0 for puts)."""
+    device = _device_of(given_price, forward, strike, ttm, discfactor)
+    given_price, forward, strike, ttm, discfactor = (
+        _f64(a, device) for a in (given_price, forward, strike, ttm, discfactor))
+    is_call = _is_call(optiontype, device)
+    shape = torch.broadcast_shapes(given_price.shape, forward.shape, strike.shape,
+                                   ttm.shape, discfactor.shape, is_call.shape)
+    b = lambda x: x.to(torch.float64).expand(shape)
+    sgn = torch.where(is_call, 1.0, -1.0).to(torch.float64).expand(shape)
+    return tuple(b(a) for a in (given_price, forward, strike, ttm, discfactor)) + (sgn,)
+
+
+def infer_bsm_implied_vol_fast(forward, ttm, strike, given_price, discfactor=1.0,
+                               optiontype='C', nb_bisect: int = 24,
+                               nb_newton: int = 4) -> torch.Tensor:
+    """fast implied vol: a 24-step bisection bracket and a 4-step Newton polish.
+
+    ~7x fewer sequential stages than :func:`infer_bsm_implied_vol`, for
+    calibration objectives; NaN where the price is not bracketed.  Its
+    derivatives come from the implicit function theorem (1/vega), in forward
+    and reverse mode, so ``torch.func.jacfwd``, ``vmap`` and ``backward`` go
+    through it.
+    """
+    given_price, forward, strike, ttm, discfactor, sgn = _broadcast_inputs(
+        forward, ttm, strike, given_price, discfactor, optiontype)
+    return _FastIVCore.apply(given_price, forward, strike, ttm, discfactor, sgn,
+                             int(nb_bisect), int(nb_newton))
+
+
 def infer_bsm_implied_vol(forward, ttm, strike, given_price, discfactor=1.0,
                           optiontype='C', tol: float = 1e-16,
                           is_bounds_to_nan: bool = True) -> torch.Tensor:
@@ -132,24 +326,19 @@ def infer_bsm_implied_vol(forward, ttm, strike, given_price, discfactor=1.0,
     ``tol`` is accepted for signature parity; the fixed 200 iterations exceed
     any representable tolerance.  With ``is_bounds_to_nan`` (the default)
     out-of-bracket prices give NaN; otherwise they clamp to the violated bound.
+    The vol is differentiable in reverse mode in price, forward, strike, ttm
+    and discount factor (the implicit-function rule, 0 at NaN vols).
     """
     del tol
-    device = _device_of(given_price, forward, strike, ttm, discfactor)
-    given_price, forward, strike, ttm, discfactor = (
-        _f64(a, device) for a in (given_price, forward, strike, ttm, discfactor))
-    is_call = _is_call(optiontype, device)
-    shape = torch.broadcast_shapes(given_price.shape, forward.shape, strike.shape,
-                                   ttm.shape, discfactor.shape, is_call.shape)
-    b = lambda x: x.to(torch.float64).expand(shape)
-    is_call_f = torch.where(is_call, 1.0, -1.0).to(torch.float64).expand(shape)
-    res = _bisection_impl(b(given_price), b(forward), b(strike), b(ttm),
-                          b(discfactor), is_call_f)
+    inputs = _broadcast_inputs(forward, ttm, strike, given_price, discfactor, optiontype)
+    res = _ImpliedVolCore.apply(*inputs)
     if not is_bounds_to_nan:
+        given_price, forward, strike, ttm, discfactor, _ = inputs
         p_low = compute_bsm_vanilla_price(forward=forward, strike=strike, ttm=ttm,
-                                          vol=torch.full_like(b(ttm), 0.01),
+                                          vol=torch.full_like(ttm, 0.01),
                                           optiontype=optiontype, discfactor=discfactor)
-        unbracketed = torch.isnan(res) & torch.isfinite(b(given_price))
-        bound = torch.where(b(given_price) <= p_low, torch.full_like(res, IV_LOWER),
+        unbracketed = torch.isnan(res) & torch.isfinite(given_price)
+        bound = torch.where(given_price <= p_low, torch.full_like(res, IV_LOWER),
                             torch.full_like(res, IV_UPPER))
         res = torch.where(unbracketed, bound, res)
     return res

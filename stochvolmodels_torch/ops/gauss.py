@@ -13,6 +13,11 @@ import math
 import torch
 
 
+# the rational fit's exponent: -z^2 + c0 + t (c1 + t (c2 + ... + t c9))
+ERFCC_COEFFS = (-1.26551223, 1.00002368, 0.37409196, 0.09678418, -0.18628806,
+                0.27886807, -1.13520398, 1.48851587, -0.82215223, 0.17087277)
+
+
 def erfcc(x: torch.Tensor) -> torch.Tensor:
     """complementary error function by the Numerical Recipes rational fit."""
     z = torch.abs(x)

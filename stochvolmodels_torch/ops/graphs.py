@@ -1,0 +1,107 @@
+"""
+CUDA graphs for the port's launch-bound loops.
+
+The analytic paths are thousands of small elementwise kernels, each behind a
+few microseconds of host work.  A captured CUDA graph launches them all with
+one host call.  Two calls go through this module: the 200-step BSM bisection
+(``ops/bsm.py``, one graph per panel shape) and the whole Levenberg-Marquardt
+fit (``models/logsv/fast_calibration.py``, one graph per chain shape and
+static configuration).
+
+A graph replays the exact kernels that the eager call launches, on the same
+inputs, so its outputs equal the eager call's bit for bit.  There is no
+fallback: a capture that fails raises, and a call made inside a
+``torch.func`` transform or inside another capture raises.  ``eager()``
+switches capture off for a block, explicitly, so that a caller can time the
+eager call or hold the two against each other.  On the CPU nothing is
+captured.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+from typing import Callable, Hashable, Sequence, Tuple
+
+import torch
+
+# at most this many graphs are kept; the least recently used one goes first
+MAX_GRAPHS = 16
+# graph replays by the name of the call, for launch checks
+REPLAYS: collections.Counter = collections.Counter()
+
+_capture_enabled = True
+_graphs: "collections.OrderedDict[Hashable, _Captured]" = collections.OrderedDict()
+
+
+@contextlib.contextmanager
+def eager():
+    """run the captured calls eagerly inside the block (on the card too)."""
+    global _capture_enabled
+    before, _capture_enabled = _capture_enabled, False
+    try:
+        yield
+    finally:
+        _capture_enabled = before
+
+
+def use_graph(tensor: torch.Tensor) -> bool:
+    """True where a call on this tensor's device runs through a graph:
+    capture is on and the tensor lies on a CUDA device."""
+    return _capture_enabled and tensor.is_cuda
+
+
+class _Captured:
+    """one captured call of ``fn`` on static copies of its inputs."""
+
+    def __init__(self, fn: Callable[..., Tuple[torch.Tensor, ...]],
+                 inputs: Sequence[torch.Tensor]):
+        self.static_inputs = [torch.empty(x.shape, dtype=x.dtype, device=x.device)
+                              for x in inputs]
+        for s, x in zip(self.static_inputs, inputs):
+            s.copy_(x)
+        # warm up on a side stream: first-use allocations, lazy cuBLAS set-up
+        # and cached constants happen outside the captured region
+        side = torch.cuda.Stream(device=self.static_inputs[0].device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(*self.static_inputs)
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.static_outputs = fn(*self.static_inputs)
+
+    def __call__(self, inputs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+        for s, x in zip(self.static_inputs, inputs):
+            s.copy_(x)
+        self.graph.replay()
+        return tuple(o.clone() for o in self.static_outputs)
+
+
+def run_captured(name: str, key: Hashable, fn: Callable[..., Tuple[torch.Tensor, ...]],
+                 inputs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """``fn(*inputs)`` (a tuple of tensors) through the graph cached under
+    ``(name, key)``, captured at its first use.
+
+    ``fn`` must launch the same kernels for every input of the key's shapes
+    and never wait for the host; the graph reads its inputs from static
+    buffers that each call copies ``inputs`` into, and the outputs are
+    cloned out of the graph's pool.
+    """
+    if torch._C._functorch.maybe_current_level() is not None:
+        raise RuntimeError(f"{name}: a captured graph cannot run inside a torch.func transform")
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{name}: a captured graph cannot run inside another capture")
+    full_key = (name, key)
+    entry = _graphs.get(full_key)
+    if entry is None:
+        while len(_graphs) >= MAX_GRAPHS:
+            _graphs.popitem(last=False)
+        try:
+            entry = _Captured(fn, inputs)
+        except RuntimeError as exc:
+            raise RuntimeError(f"{name}: CUDA graph capture failed: {exc}") from exc
+        _graphs[full_key] = entry
+    else:
+        _graphs.move_to_end(full_key)
+    REPLAYS[name] += 1
+    return entry(inputs)

@@ -30,16 +30,25 @@ def get_phi_grid(is_spot_measure: bool = True, max_phi: int = PHI_POINTS,
     measure and +0.5 under the inverse measure.  ``p`` is built as
     ``k * (stop / (n-1))`` with the end point set to ``stop``: the rounding
     of ``np.linspace`` and of ``jnp.linspace`` as XLA compiles it, so the
-    grids agree bit for bit.
+    grids agree bit for bit.  ``vol_scaler`` may be a 0-dim float64 tensor on
+    ``device`` (a captured calibration takes it as an input); the grid then
+    has the same bits as from the Python float.
     """
     if real_phi is None:
         real_p = -0.5 if is_spot_measure else 0.5
     else:
         real_p = float(real_phi)
-    stop = 5.6 / float(vol_scaler)
     div = max_phi - 1
-    p = torch.cat([torch.arange(div, dtype=torch.float64, device=device) * (stop / div),
-                   torch.full((1,), stop, dtype=torch.float64, device=device)])
+    if isinstance(vol_scaler, torch.Tensor):
+        # tensor by tensor: a true division (``5.6 / t`` multiplies by 1/t,
+        # and the card divides by a Python number through its reciprocal)
+        vs = vol_scaler.to(torch.float64)
+        stop = vs.new_full((), 5.6) / vs
+        step, end = stop / vs.new_full((), div), stop.reshape(1)
+    else:
+        stop = 5.6 / float(vol_scaler)
+        step, end = stop / div, torch.full((1,), stop, dtype=torch.float64, device=device)
+    p = torch.cat([torch.arange(div, dtype=torch.float64, device=device) * step, end])
     return torch.complex(torch.full_like(p, real_p), p)
 
 
@@ -67,12 +76,20 @@ def simpson_base_weights(n: int) -> np.ndarray:
     return base
 
 
+def _simpson_base_on(n: int, device) -> torch.Tensor:
+    """:func:`simpson_base_weights` made on ``device`` by kernels (no copy from
+    the host, so a CUDA graph can capture it); the values are exact."""
+    k = torch.arange(n, device=device)
+    base = torch.where(k % 2 == 1, 4.0, 2.0).to(torch.float64)
+    ends = (k == 0) | ((k == n - 1) & ((n - 1) % 2 == 0))
+    return torch.where(ends, 1.0, base)
+
+
 def compute_integration_weights(var_grid: torch.Tensor, is_simpson: bool = True) -> torch.Tensor:
     """quadrature weights on Im(grid) (1-D): Simpson (default) or trapezoid."""
     p = var_grid.imag
     if is_simpson:
-        base = torch.as_tensor(simpson_base_weights(p.shape[-1]), device=p.device)
-        return ((p[1] - p[0]) / 3.0) * base
+        return ((p[1] - p[0]) / 3.0) * _simpson_base_on(p.shape[-1], p.device)
     return torch.cat([(0.5 * (p[1] - p[0]))[None], p[1:] - p[:-1]])
 
 

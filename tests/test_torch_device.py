@@ -4,7 +4,8 @@
     ``device`` parameter whose default is the CPU (or ``None``, PyTorch's
     CPU default): each default names a CUDA device;
 (b) on a PyTorch without CUDA, as here, a call on the default device raises
-    instead of running on the CPU.
+    instead of running on the CPU: the pricers, the fast implied vol, and
+    the calibrations (SLSQP, LM and Adam).
 """
 import importlib
 import inspect
@@ -43,8 +44,11 @@ def test_no_device_parameter_defaults_to_the_cpu():
         param = inspect.signature(fn).parameters.get("device")
         if param is not None and param.default is not inspect.Parameter.empty:
             with_device[name] = param.default
-    # the pricers, the chain lowering, the grids, the MC chain pricers, the generator
-    assert len(with_device) >= 12, sorted(with_device)
+    # the pricers, the chain lowering, the grids, the MC chain pricers, the
+    # generator, the LM and Adam calibrations
+    assert len(with_device) >= 16, sorted(with_device)
+    assert "stochvolmodels_torch.models.logsv.fast_calibration.calibrate_logsv_lm_on_device" \
+        in with_device
     not_cuda = {name: d for name, d in with_device.items()
                 if d is None or torch.device(d).type != "cuda"}
     assert not not_cuda, not_cuda
@@ -64,13 +68,31 @@ def default_device_calls():
         "compute_bsm_vanilla_price": lambda: svt.compute_bsm_vanilla_price(
             np.ones(3), np.ones(3), np.ones(3), np.full(3, 0.5)),
         "generator_from_seed": lambda: port_random.generator_from_seed(7),
+        "infer_bsm_implied_vol_fast": lambda: svt.infer_bsm_implied_vol_fast(
+            np.ones(3), np.ones(3), np.ones(3), np.full(3, 0.1)),
+        "LogSVPricer.compute_model_ivols_for_chain(fast)":
+            lambda: svt.LogSVPricer().compute_model_ivols_for_chain(
+                chain, svt.LOGSV_BTC_PARAMS, precision="fast"),
+        "LogSVPricer.calibrate_model_params_to_chain(slsqp)":
+            lambda: svt.LogSVPricer().calibrate_model_params_to_chain(chain, svt.LOGSV_BTC_PARAMS),
+        "LogSVPricer.calibrate_model_params_to_chain(lm)":
+            lambda: svt.LogSVPricer().calibrate_model_params_to_chain(
+                chain, svt.LOGSV_BTC_PARAMS, method="lm"),
+        "calibrate_logsv_lm_on_device": lambda: svt.calibrate_logsv_lm_on_device(
+            chain, svt.LOGSV_BTC_PARAMS),
+        "calibrate_logsv_on_device": lambda: svt.calibrate_logsv_on_device(
+            chain, svt.LOGSV_BTC_PARAMS),
     }
 
 
 @pytest.mark.parametrize("name", ["LogSVPricer.price_chain", "HestonPricer.price_chain",
                                   "HawkesJDPricer.model_mc_price_chain", "OptionChain.to_grid",
                                   "get_phi_grid", "compute_bsm_vanilla_price",
-                                  "generator_from_seed"])
+                                  "generator_from_seed", "infer_bsm_implied_vol_fast",
+                                  "LogSVPricer.compute_model_ivols_for_chain(fast)",
+                                  "LogSVPricer.calibrate_model_params_to_chain(slsqp)",
+                                  "LogSVPricer.calibrate_model_params_to_chain(lm)",
+                                  "calibrate_logsv_lm_on_device", "calibrate_logsv_on_device"])
 def test_default_device_call_raises_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("this PyTorch has a CUDA device: the default device runs")
