@@ -33,6 +33,13 @@ cost and error and ``calib_warm_s`` captured and eager; one SLSQP fit with
 its wall time.  Then the 200-step bisection's graph: the ivols of the LogSV,
 Heston and Hawkes chains and one MC band call, captured and uncaptured,
 equal bit for bit, with their walls and the device kernels per inversion.
+Then Heston calibration (one SLSQP fit; 16 LM iterations as one CUDA graph,
+captured and eager, bit for bit), the Hawkes reprice as one CUDA graph
+(prices, ivols and one risk-premia reprice, captured and eager, bit for
+bit, with kernels and host launch calls per call) and Hawkes calibration
+(16 LM iterations at 720 RK4 steps/yr, one graph an iteration, captured and
+eager, bit for bit; one 8-parameter SLSQP fit and one risk-premia fit on
+the first two BTC slices).
 Each phase prints one line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 it exits 1 and prints no result.
@@ -81,11 +88,21 @@ STATE_BYTES = {"logsv_mc": 24, "heston_mc": 24, "rough_mc": 12, "hawkes_mc": 24,
 # H100 SXM at 700 W: float32 outside the tensor cores, and HBM3
 PEAK_OPS_PER_S, PEAK_BYTES_PER_S = 67e12, 3.35e12
 # calibration: bench.py's start point of the LM benchmark, 12 LM iterations,
-# warm walls as medians of 3 calls
+# one warm call a side (the eager LM fits take 8-21 s each)
 CALIB_PARAMS0 = dict(sigma0=0.8, theta=1.0, kappa1=2.21, kappa2=2.18, beta=0.15, volvol=1.85)
-CALIB_LM_ITERS, CALIB_REPEATS = 12, 3
+CALIB_LM_ITERS, CALIB_REPEATS = 12, 1
 # warm repeats of each ivols call, captured and uncaptured
 GRAPH_REPEATS = 5
+# Heston calibration: the JAX test's LM start point (tests/test_heston.py), 16 LM iterations
+HESTON_LM_PARAMS0 = dict(v0=0.8, theta=1.0, kappa=2.0, rho=0.1, volvol=1.5)
+HESTON_LM_ITERS = 16
+# Hawkes calibration: 16 LM iterations at 720 RK4 steps/yr from HawkesJDParams(), captured;
+# captured against eager at HAWKES_LM_CHECK_ITERS (an eager iteration takes 5-11 s of host
+# launches, and each iteration replays the same step graph); the SLSQP and gamma fits on the
+# first HAWKES_FIT_SLICES BTC slices, the gamma fit at HAWKES_GAMMA_MAXITER iterations (its
+# ftol of 1e-16 is never met, so it runs to maxiter)
+HAWKES_LM_ITERS, HAWKES_LM_YEAR_STEPS, HAWKES_LM_CHECK_ITERS = 16, 720, 2
+HAWKES_FIT_SLICES, HAWKES_GAMMA_MAXITER = 2, 20
 
 
 def _check(ok: bool, what: str) -> None:
@@ -300,7 +317,7 @@ def _gpu_vs_cpu(gpu, cpu, chain, params, prices, ivols, what, repeats=5):
 
 def _same(a, b) -> bool:
     """equal bit for bit: two ragged lists of arrays (NaN where NaN), or two
-    fits (LogSvParams, cost)."""
+    fits ((params, cost) by their repr)."""
     if isinstance(a, (list, tuple)) and isinstance(a[0], np.ndarray):
         return len(a) == len(b) and all(np.array_equal(x, y, equal_nan=True)
                                         for x, y in zip(a, b))
@@ -378,12 +395,25 @@ def _calibration_phase(svt, gpu, chain) -> None:
           f"{gpu.calibration_result.fun:.6e}, mean |ivol - mid| {err:.5f} | {smi}", flush=True)
 
 
-def _launches_per_inversion(svt, graphs, chain, prices) -> dict:
-    """(device kernels, host launch calls) of one chain inversion, captured
-    and eager, counted by torch.profiler: the kernels the device ran, and the
-    runtime calls that launched them (``cudaLaunchKernel``, ``cudaGraphLaunch``)."""
+def _profile_counts(fn):
+    """(device kernels, host launch calls) of one warm call of ``fn``,
+    counted by torch.profiler: the kernels the device ran, and the runtime
+    calls that launched them (``cudaLaunchKernel``, ``cudaGraphLaunch``)."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    return (sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
+            sum(1 for e in events if e.name.startswith(("cudaLaunchKernel", "cudaGraphLaunch"))))
+
+
+def _launches_per_inversion(svt, graphs, chain, prices) -> dict:
+    """(device kernels, host launch calls, wall ms, CUDA-event ms) of one
+    chain inversion, captured and eager."""
     grid = chain.to_grid(device=DEVICE)
     panel = torch.as_tensor(svt.npad(prices, pad_value=np.nan)[0], device=DEVICE)
     invert = lambda: svt.infer_bsm_ivols_from_model_chain_prices(
@@ -392,18 +422,10 @@ def _launches_per_inversion(svt, graphs, chain, prices) -> dict:
     counts = {}
     for mode in ("captured", "eager"):
         with (graphs.eager() if mode == "eager" else contextlib.nullcontext()):
-            invert()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                invert()
-                torch.cuda.synchronize()
+            kernels, launches = _profile_counts(invert)
             wall_ms = _warm_ms(lambda: invert().cpu(), repeats=11)
             device_ms = _event_ms(invert, 11)
-        events = prof.events()
-        counts[mode] = (sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
-                        sum(1 for e in events if e.name.startswith(("cudaLaunchKernel",
-                                                                    "cudaGraphLaunch"))),
-                        wall_ms, device_ms)
+        counts[mode] = (kernels, launches, wall_ms, device_ms)
     return counts
 
 
@@ -447,6 +469,156 @@ def _graph_phase(svt, chain, gpu, hgpu, kgpu, P, H, HP) -> None:
           f"(median of 11, to the panel on the host); CUDA-event time back to back "
           f"captured {cap[3]:.2f} ms, uncaptured {unc[3]:.2f} ms (mean of 11) | {smi}",
           flush=True)
+
+
+def _heston_calibration_phase(svt, hgpu, chain) -> None:
+    """Heston on the BTC chain: one SLSQP fit from BTC_HESTON_PARAMS, and 16
+    LM iterations (one CUDA graph) from the JAX test's start point, captured
+    and eager in turns, equal bit for bit."""
+    from stochvolmodels_torch.ops import graphs
+
+    smi = _smi_name_and_power()
+    H = svt.BTC_HESTON_PARAMS
+    err0 = _fit_error(hgpu, chain, H)
+    t0 = time.perf_counter()
+    fit = hgpu.calibrate_model_params_to_chain(chain, H)
+    slsqp_s = time.perf_counter() - t0
+    res = hgpu.calibration_result
+    err = _fit_error(hgpu, chain, fit)
+    _check(np.isfinite(res.fun) and err < err0, f"Heston SLSQP fit error {err} (start {err0})")
+    feller = 2.0 * fit.kappa * fit.theta - fit.volvol ** 2
+    _check(feller > -1e-6, f"Heston SLSQP fit breaks the Feller condition: {feller}")
+    print(f"[heston-calibration] SLSQP from BTC_HESTON_PARAMS (Feller constraint, gradient by "
+          f"torch.autograd): {slsqp_s:.3f} s, nfev {res.nfev}, nit {res.nit}, objective "
+          f"{res.fun:.6e}, mean |ivol - mid| {err:.5f} (start {err0:.5f}), Feller gap "
+          f"2 kappa theta - volvol^2 = {feller:.4f} | {smi}", flush=True)
+    p0 = svt.HestonParams(**HESTON_LM_PARAMS0)
+    err0 = _fit_error(hgpu, chain, p0)
+    graphs.REPLAYS.clear()
+    (fit, cost), capture_s, captured_s, eager_s = _captured_and_eager(
+        graphs, lambda: svt.calibrate_heston_lm(chain, p0, nb_iters=HESTON_LM_ITERS, device=DEVICE),
+        repeats=CALIB_REPEATS)
+    replays = graphs.REPLAYS["heston_lm"]
+    _check(replays == 1 + CALIB_REPEATS, f"Heston LM: {replays} graph replays")
+    err = _fit_error(hgpu, chain, fit)
+    _check(np.isfinite(cost) and err < min(err0, 0.05), f"Heston LM fit error {err} (start {err0})")
+    feller = 2.0 * fit.kappa * fit.theta - fit.volvol ** 2
+    _check(feller > -0.5, f"Heston LM fit far outside the Feller condition: {feller}")
+    print(f"[heston-calibration] LM, {HESTON_LM_ITERS} iterations from {HESTON_LM_PARAMS0}: cost "
+          f"{cost:.6e}, mean |ivol - mid| {err:.5f} (start {err0:.5f}), Feller gap {feller:.4f}; "
+          f"captured fit equal bit for bit to the eager fit; capture (first call) {capture_s:.3f} "
+          f"s; warm captured {captured_s:.4f} s, eager {eager_s:.4f} s (median of "
+          f"{CALIB_REPEATS}, in turns; {replays} graph replays) | {smi}", flush=True)
+
+
+def _hawkes_graph_phase(svt, kgpu, chain) -> None:
+    """the Hawkes reprice as one CUDA graph: price_chain, the ivols and one
+    gamma = 0.5 risk-premia reprice, captured and eager in turns, equal bit
+    for bit, with device kernels and host launch calls per call."""
+    from stochvolmodels_torch.ops import graphs
+
+    smi = _smi_name_and_power()
+    HP = svt.HawkesJDParams()
+    norm_chain = svt.OptionChain.to_forward_normalised_strikes(chain)
+    HG = svt.HawkesJDParams(risk_premia_gamma=HAWKES_GAMMA)
+    calls = {
+        "price_chain": (lambda: kgpu.price_chain(chain, HP), True),
+        "compute_model_ivols_for_chain": (lambda: kgpu.compute_model_ivols_for_chain(chain, HP),
+                                          True),
+        f"risk-premia compute_chain_prices_with_vols (gamma {HAWKES_GAMMA}, forward-normalised)":
+            (lambda: [a for half in kgpu.compute_chain_prices_with_vols(norm_chain, HG)
+                      for a in half], False)}
+    for name, (fn, count) in calls.items():
+        graphs.REPLAYS.clear()
+        out, _, captured_s, eager_s = _captured_and_eager(graphs, fn, repeats=HAWKES_REPEATS)
+        _check(graphs.REPLAYS["hawkes_price"] == 1 + HAWKES_REPEATS,
+               f"Hawkes {name}: {graphs.REPLAYS['hawkes_price']} reprice graph replays")
+        _check(all(np.all(np.isfinite(a)) for a in out), f"Hawkes {name}: output not finite")
+        counts = ""
+        if count:
+            cap = _profile_counts(fn)
+            with graphs.eager():
+                unc = _profile_counts(fn)
+            counts = (f"; device kernels captured {cap[0]}, eager {unc[0]}; host launch calls "
+                      f"captured {cap[1]}, eager {unc[1]} (torch.profiler, one call)")
+        print(f"[hawkes-graph] {name}: captured equal bit for bit to eager (the graph was "
+              f"captured in the Hawkes path above); warm captured {1e3 * captured_s:.1f} ms, eager "
+              f"{1e3 * eager_s:.1f} ms (median of {HAWKES_REPEATS}, in turns){counts} | {smi}",
+              flush=True)
+
+
+def _hawkes_calibration_phase(svt, kgpu, chain) -> None:
+    """Hawkes on the BTC chain: 16 LM iterations (one CUDA graph an
+    iteration) captured, and captured against eager at
+    HAWKES_LM_CHECK_ITERS iterations, equal bit for bit; one 8-parameter
+    SLSQP fit and one (sigma, gamma) fit on the first HAWKES_FIT_SLICES
+    slices."""
+    from stochvolmodels_torch.ops import graphs
+
+    smi = _smi_name_and_power()
+    p0 = svt.HawkesJDParams()
+    lm = lambda n: svt.calibrate_hawkesjd_lm_on_device(chain, p0, nb_iters=n,
+                                                       year_steps=HAWKES_LM_YEAR_STEPS, device=DEVICE)
+    err0 = _fit_error(kgpu, chain, p0)
+    graphs.REPLAYS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit, cost = lm(HAWKES_LM_ITERS)
+    capture_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = lm(HAWKES_LM_ITERS)
+    torch.cuda.synchronize()
+    captured_s = time.perf_counter() - t0
+    _check(_same(again, (fit, cost)), f"Hawkes LM: a warm captured fit differs: {again}")
+    _, _, check_captured_s, check_eager_s = _captured_and_eager(
+        graphs, lambda: lm(HAWKES_LM_CHECK_ITERS), repeats=1)
+    steps = graphs.REPLAYS["hawkes_lm_step"]
+    _check(steps == 2 * HAWKES_LM_ITERS + 2 * HAWKES_LM_CHECK_ITERS,
+           f"Hawkes LM: {steps} step replays")
+    _, cost0 = lm(0)
+    init_nodes = _profile_counts(lambda: lm(0))[0]
+    step_nodes = _profile_counts(lambda: lm(1))[0] - init_nodes
+    err = _fit_error(kgpu, chain, fit)
+    gap = fit.jump1_cond + fit.jump2_cond
+    _check(np.isfinite(cost) and cost < cost0 and err < err0,
+           f"Hawkes LM: cost {cost} (start {cost0}), fit error {err} (start {err0})")
+    _check(gap > -1.0, f"Hawkes LM fit far from stationary: jump1 + jump2 = {gap}")
+    print(f"[hawkes-calibration] LM, {HAWKES_LM_ITERS} iterations at {HAWKES_LM_YEAR_STEPS} RK4 "
+          f"steps/yr from HawkesJDParams(): cost {cost:.6e} (start {cost0:.6e}), mean |ivol - "
+          f"mid| {err:.5f} (start {err0:.5f}), stationarity jump1 + jump2 = {gap:.4f}; capture "
+          f"(first call: the initial state's graph and the step's) {capture_s:.3f} s; graph nodes "
+          f"(device kernels of one replay) initial state {init_nodes}, step {step_nodes}; warm "
+          f"captured {captured_s:.4f} s; {HAWKES_LM_CHECK_ITERS}-iteration fits captured "
+          f"{check_captured_s:.4f} s and eager {check_eager_s:.4f} s, equal bit for bit (one "
+          f"step graph, replayed per iteration; {steps} step replays) | {smi}", flush=True)
+    part = svt.OptionChain.get_slices_as_chain(chain, ids=chain.ids[:HAWKES_FIT_SLICES])
+    where = f"the first {HAWKES_FIT_SLICES} BTC slices ({', '.join(part.ids)})"
+    err0 = _fit_error(kgpu, part, p0)
+    t0 = time.perf_counter()
+    fit = kgpu.calibrate_model_params_to_chain(part, svt.HawkesJDParams())
+    slsqp_s = time.perf_counter() - t0
+    res = kgpu.calibration_result
+    err = _fit_error(kgpu, part, fit)
+    _check(np.isfinite(res.fun) and err < err0, f"Hawkes SLSQP fit error {err} (start {err0})")
+    print(f"[hawkes-calibration] 8-parameter SLSQP on {where} (finite differences, reprice and "
+          f"bisection two graphs an evaluation): {slsqp_s:.3f} s, nfev {res.nfev}, nit "
+          f"{res.nit}, objective {res.fun:.6e}, mean |ivol - mid| {err:.5f} (start {err0:.5f}), "
+          f"stationarity {fit.jump1_cond + fit.jump2_cond:.4f} | {smi}", flush=True)
+    norm = svt.OptionChain.to_forward_normalised_strikes(part)
+    err0 = _fit_error(kgpu, norm, svt.HawkesJDParams(risk_premia_gamma=HAWKES_GAMMA))
+    params0 = svt.HawkesJDParams(risk_premia_gamma=HAWKES_GAMMA)
+    t0 = time.perf_counter()
+    fit = kgpu.calibrate_risk_premia_gamma_to_chain(norm, params0, maxiter=HAWKES_GAMMA_MAXITER)
+    gamma_s = time.perf_counter() - t0
+    res = kgpu.calibration_result
+    err = _fit_error(kgpu, norm, fit)
+    _check(fit is params0 and np.isfinite(res.fun) and err <= err0,
+           f"Hawkes gamma fit error {err} (start {err0})")
+    print(f"[hawkes-calibration] (sigma, gamma) risk-premia fit on {where}, forward-normalised, "
+          f"from gamma {HAWKES_GAMMA}, maxiter {HAWKES_GAMMA_MAXITER}: {gamma_s:.3f} s, nfev {res.nfev}, nit {res.nit}, objective "
+          f"{res.fun:.6e}, sigma {fit.sigma:.5f}, gamma {fit.risk_premia_gamma:.5f}, mean |ivol - "
+          f"mid| {err:.5f} (start {err0:.5f}) | {smi}", flush=True)
 
 
 def main() -> int:
@@ -703,7 +875,7 @@ def main() -> int:
         ggap = max(ggap, float(np.max(np.abs(pg - pc))))
     print(f"[hawkes-risk-premia] gamma {HAWKES_GAMMA} on the forward-normalised chain: GPU vs "
           f"CPU max |dprice| {ggap:.2e}; compute_chain_prices_with_vols {gamma_ms:.1f} ms "
-          f"(one call)", flush=True)
+          f"(one call, the graph's capture included)", flush=True)
 
     worst = 0.0
     for a, m, s, fwd in zip(kprices, kmc[0], kmc[6], chain.forwards):
@@ -820,6 +992,10 @@ def main() -> int:
     # 11.-12. calibration and the CUDA graphs of the launch-bound calls
     _calibration_phase(svt, gpu, chain)
     _graph_phase(svt, chain, gpu, hgpu, kgpu, P, H, HP)
+    # 13.-15. Heston and Hawkes calibration, the Hawkes reprice as one graph
+    _heston_calibration_phase(svt, hgpu, chain)
+    _hawkes_graph_phase(svt, kgpu, chain)
+    _hawkes_calibration_phase(svt, kgpu, chain)
 
     replaces = {name: f"stochvolmodels_tpu/ops/pallas_mc.py:{line}" for name, line in
                 (("logsv_mc", 142), ("heston_mc", 282), ("rough_mc", 386), ("hawkes_mc", 588))}

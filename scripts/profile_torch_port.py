@@ -19,6 +19,20 @@ take the most device time.  ``--calls`` keeps only the calls named;
 wall) runs only when named.  ``--eager`` runs every call without its CUDA
 graphs (the bisection's and the LM fit's).  The full ``key_averages``
 tables go to ``<out>/``.  Exits 1 without a CUDA device.
+
+For ``hawkes`` the calls also hold one gamma = 0.5 risk-premia reprice with
+its ivols on the forward-normalised chain
+(``compute_chain_prices_with_vols_gamma``).  Whole fits, named in
+``--calls`` only and timed without the profiler (one call each, after a
+warm-up call for the captured LM fits, whose first call captures):
+``heston``:
+``calibrate_slsqp`` (from ``BTC_HESTON_PARAMS``), ``calibrate_lm`` (16
+iterations from the JAX test's start point); ``hawkes``:
+``calibrate_slsqp`` (8 parameters from ``HawkesJDParams()``),
+``calibrate_gamma`` (from gamma 0.5 on the forward-normalised chain),
+``calibrate_lm`` (16 iterations at 720 steps/yr).  Each fit's line adds
+scipy's ``nfev`` and ``nit`` where there are, and the mean |model ivol - mid
+vol| of the fit.
 """
 import argparse
 import contextlib
@@ -116,11 +130,55 @@ def main() -> int:
         calls["calibrate_lm"] = lambda: pricer.calibrate_model_params_to_chain(
             chain, p0, method="lm", nb_iters=12)
         repeats["calibrate_lm"] = 3
+    norm = svt.OptionChain.to_forward_normalised_strikes(chain)
+    if args.model == "hawkes":
+        gamma_params = svt.HawkesJDParams(risk_premia_gamma=0.5)
+        calls["compute_chain_prices_with_vols_gamma"] = \
+            lambda: pricer.compute_chain_prices_with_vols(norm, gamma_params)
+    fits = {}
+    if args.model == "heston":
+        fits = {"calibrate_slsqp": (chain, lambda: pricer.calibrate_model_params_to_chain(
+                    chain, svt.BTC_HESTON_PARAMS)),
+                "calibrate_lm": (chain, lambda: pricer.calibrate_model_params_to_chain(
+                    chain, svt.HestonParams(v0=0.8, theta=1.0, kappa=2.0, rho=0.1, volvol=1.5),
+                    method="lm", nb_iters=16))}
+    elif args.model == "hawkes":
+        fits = {"calibrate_slsqp": (chain, lambda: pricer.calibrate_model_params_to_chain(
+                    chain, svt.HawkesJDParams())),
+                "calibrate_gamma": (norm, lambda: pricer.calibrate_risk_premia_gamma_to_chain(
+                    norm, svt.HawkesJDParams(risk_premia_gamma=0.5))),
+                "calibrate_lm": (chain, lambda: pricer.calibrate_model_params_to_chain(
+                    chain, svt.HawkesJDParams(), method="lm", nb_iters=16, year_steps=720))}
     with graphs.eager() if args.eager else contextlib.nullcontext():
         recs = [_profile(f"{tag}{name}", fn, out_dir, repeats.get(name, REPEATS))
                 for name, fn in calls.items() if not args.calls or name in args.calls]
+        recs += [_time_fit(f"{tag}{name}", pricer, fit_chain, fn,
+                           warm=name == "calibrate_lm" and not args.eager)
+                 for name, (fit_chain, fn) in fits.items() if args.calls and name in args.calls]
     (out_dir / f"profile_{tag}summary.json").write_text(json.dumps(recs, indent=1))
     return 0
+
+
+def _time_fit(name, pricer, chain, fn, warm):
+    """wall s of one fit (after a warm-up call if ``warm``: a captured LM
+    fit's first call captures its graphs), scipy's counts, and the fit's
+    mean |model ivol - mid vol|; no profiler."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ivols = pricer.compute_model_ivols_for_chain(chain, fit)
+    err = statistics.mean(float(abs(iv - m).mean()) for iv, m in zip(ivols, chain.get_mid_vols()))
+    res = getattr(pricer, "calibration_result", None)
+    rec = {"call": name, "wall_s": wall, "fit_error": err, "fit": {k: float(v) for k, v in
+                                                                 fit.to_dict().items()
+                                                                 if v is not None},
+           "nfev": int(getattr(res, "nfev", 0) or 0), "nit": int(getattr(res, "nit", 0) or 0)}
+    print(json.dumps(rec), flush=True)
+    return rec
 
 
 if __name__ == "__main__":

@@ -7,8 +7,11 @@ It serves pricing requests for the flagship LogSV model (analytic chain
 prices through the affine-expansion Fourier engine, BSM implied vols, Monte
 Carlo, the rough lift's Monte Carlo, and calibration to a chain by SLSQP,
 Levenberg-Marquardt as one CUDA graph, or Adam), for Heston (closed-form Fourier
-prices and Monte Carlo) and for the Hawkes jump-diffusion model (Riccati
-Fourier prices, the risk-premia pricer, and thinning Monte Carlo).  Every Monte-Carlo path loop runs in a hand-written
+prices, Monte Carlo, and calibration by SLSQP with the Feller constraint or by
+Levenberg-Marquardt) and for the Hawkes jump-diffusion model (Riccati Fourier
+prices as one CUDA graph a reprice, the risk-premia pricer, thinning Monte
+Carlo, and calibration by SLSQP, by Levenberg-Marquardt, and of the risk
+premia).  Every Monte-Carlo path loop runs in a hand-written
 CUDA kernel on NVIDIA Hopper.  Every entry point runs on the card unless the
 caller asks for the CPU (``LogSVPricer(device="cpu")``); without a card, a call
 on the default device raises.
@@ -28,15 +31,21 @@ from stochvolmodels_torch.interop import (  # noqa: F401
     heston_params_from_numpy,
     params_from_numpy,
 )
-from stochvolmodels_torch.models.hawkes_jd import HawkesJDParams, HawkesJDPricer  # noqa: F401
+from stochvolmodels_torch.models.hawkes_jd import (  # noqa: F401
+    HawkesJDParams,
+    HawkesJDPricer,
+    calibrate_hawkesjd_lm_on_device,
+)
 from stochvolmodels_torch.models.heston import (  # noqa: F401
     BTC_HESTON_PARAMS,
     HestonParams,
     HestonPricer,
+    calibrate_heston_lm,
     compute_heston_mgf_grid,
     heston_chain_price_grid,
     heston_mc_chain_pricer,
     simulate_heston_terminal,
+    v0_implied,
 )
 from stochvolmodels_torch.models.logsv.affine import (  # noqa: F401
     ExpansionOrder,
@@ -99,6 +108,13 @@ from stochvolmodels_torch.ops.mgf import (  # noqa: F401
     vanilla_prices_with_mgf_grid,
     vanilla_slice_pricer_with_mgf_grid,
 )
-from stochvolmodels_torch.ops.lm import lm_minimize  # noqa: F401
+from stochvolmodels_torch.ops.lm import lm_init, lm_minimize, lm_step  # noqa: F401
 from stochvolmodels_torch.ops.payoffs import compute_mc_vars_payoff  # noqa: F401
-from stochvolmodels_torch.utils.funcs import find_nearest, npad, set_time_grid, timer, unpad  # noqa: F401
+from stochvolmodels_torch.utils.funcs import (  # noqa: F401
+    find_nearest,
+    npad,
+    set_time_grid,
+    timer,
+    to_flat_np_array,
+    unpad,
+)

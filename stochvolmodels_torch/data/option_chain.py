@@ -10,7 +10,7 @@ the slice forward (log-moneyness 0, always finite) and a call code.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -167,6 +167,14 @@ class OptionChain:
         if self.bid_ivs is not None and self.ask_ivs is not None:
             return [0.5 * (b + a) for b, a in zip(self.bid_ivs, self.ask_ivs)]
         return None
+
+    def get_chain_data_as_xy(self) -> Tuple[tuple, List[np.ndarray]]:
+        """(x, y) for calibration: the chain's coordinates (ttms, forwards,
+        discount factors, strikes, option types) and its mid vols."""
+        mid_vols = [0.5 * (b + a) for b, a in zip(self.bid_ivs, self.ask_ivs)]
+        x = (self.ttms, self.forwards, self.discfactors, self.strikes_ttms,
+             self.optiontypes_ttms)
+        return x, mid_vols
 
     def get_chain_vegas(self, is_unit_ttm_vega: bool = False) -> List[np.ndarray]:
         """BSM vegas per slice at the mid vols, the calibration weights; with

@@ -7,23 +7,28 @@ complex128 math over the whole transform grid, with the Riccati state (a, b)
 chained across maturities.  Monte Carlo runs the full-truncation Euler
 scheme, either eagerly in float64 (``engine='scan'``) or through the
 hand-written CUDA kernel ``csrc/heston_mc.cu`` and its plain version
-(``engine='cuda'``).  QMC, antithetic draws, greeks and calibration are not
-ported yet.
+(``engine='cuda'``).  Calibration fits the chain's mid vols: SLSQP with the
+Feller constraint and torch gradients, or Levenberg-Marquardt as one CUDA
+graph on a card.  QMC, antithetic draws and greeks are not ported yet.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+from scipy.optimize import OptimizeResult, minimize
 
 from stochvolmodels_torch.config import VariableType
 from stochvolmodels_torch.data.option_chain import ChainGrid, OptionChain
+from stochvolmodels_torch.models.logsv.pricer import _pad_panel
 from stochvolmodels_torch.models.model_pricer import ModelParams, ModelPricer
-from stochvolmodels_torch.ops import mgf
+from stochvolmodels_torch.ops import bsm, graphs, mgf
 from stochvolmodels_torch.ops.cuda_mc import (VAR_FLOOR, engine_setup,
                                               simulate_heston_terminal_kernel)
+from stochvolmodels_torch.ops.lm import lm_minimize
 from stochvolmodels_torch.ops.payoffs import compute_mc_vars_payoff
 from stochvolmodels_torch.ops.random import generator_from_seed, step_normals
 from stochvolmodels_torch.utils.funcs import set_time_grid, timer
@@ -51,11 +56,11 @@ def default_vol_scaler(v0: float, ttm0: float) -> float:
     return float(np.minimum(0.3, np.sqrt(v0 * ttm0)))
 
 
-def compute_heston_mgf_grid(v0: float,
-                            theta: float,
-                            kappa: float,
-                            volvol: float,
-                            rho: float,
+def compute_heston_mgf_grid(v0,
+                            theta,
+                            kappa,
+                            volvol,
+                            rho,
                             ttm: float,
                             phi_grid: torch.Tensor,
                             psi_grid: torch.Tensor,
@@ -67,7 +72,9 @@ def compute_heston_mgf_grid(v0: float,
     (a_t0, b_t0) chain the Riccati solution across maturities; ``ttm`` is the
     increment from the previous slice.  Returns (log_mgf, a_t1, b_t1).
     ``torch.sqrt`` and ``torch.log`` take the principal branch, as the JAX
-    package's polar-form ``csqrt`` and ``clog`` do.
+    package's polar-form ``csqrt`` and ``clog`` do.  The parameters are
+    Python floats or 0-dim float64 tensors on the grid's device (calibration
+    differentiates through them); both give the same bits.
     """
     volvol2 = volvol * volvol
     b1 = phi_grid * (rho * volvol) + kappa
@@ -91,31 +98,40 @@ def compute_heston_mgf_grid(v0: float,
 
 
 def heston_chain_price_grid(grid: ChainGrid,
-                            v0: float,
-                            theta: float,
-                            kappa: float,
-                            volvol: float,
-                            rho: float,
-                            vol_scaler: Optional[float] = None,
+                            v0,
+                            theta,
+                            kappa,
+                            volvol,
+                            rho,
+                            vol_scaler=None,
                             variable_type: VariableType = VariableType.LOG_RETURN,
                             is_spot_measure: bool = True,
-                            is_simpson: bool = True
+                            is_simpson: bool = True,
+                            ttms_static: Optional[Tuple[float, ...]] = None
                             ) -> torch.Tensor:
     """price the padded chain panel on the grid's device; returns (n_ttm,
     max_strikes) float64 prices.  Each slice advances the previous slice's
-    Riccati state (a, b) by ``ttm_i - ttm_{i-1}``."""
+    Riccati state (a, b) by ``ttm_i - ttm_{i-1}``.
+
+    The parameters and ``vol_scaler`` are Python floats or 0-dim float64
+    tensors on the grid's device; with tensors the prices carry their
+    gradients (reverse mode) and tangents (``torch.func.jacfwd``), and have
+    the same bits as from floats.  The maturities (``ttms_static``, read
+    from the grid when not given) are host numbers.
+    """
     if variable_type != VariableType.LOG_RETURN:
         raise NotImplementedError(f"variable_type={variable_type}")
-    ttms = [float(t) for t in grid.ttms.cpu().numpy()]
+    if ttms_static is None:
+        ttms_static = tuple(float(t) for t in grid.ttms.cpu().numpy())
     if vol_scaler is None:
-        vol_scaler = default_vol_scaler(v0, ttms[0])
+        vol_scaler = default_vol_scaler(float(v0), ttms_static[0])
     phi_grid, psi_grid, _ = mgf.get_transform_var_grid(
         variable_type=variable_type, is_spot_measure=is_spot_measure,
         vol_scaler=vol_scaler, device=grid.device)
     a_t, b_t = None, None
     ttm0 = 0.0
     prices = []
-    for i, ttm in enumerate(ttms):
+    for i, ttm in enumerate(ttms_static):
         log_mgf, a_t, b_t = compute_heston_mgf_grid(
             v0=v0, theta=theta, kappa=kappa, volvol=volvol, rho=rho, ttm=ttm - ttm0,
             phi_grid=phi_grid, psi_grid=psi_grid, a_t0=a_t, b_t0=b_t)
@@ -237,16 +253,46 @@ class HestonPricer(ModelPricer):
         """analytic chain prices in float64.  ``precision='fast'`` (mixed
         precision in the JAX package) runs the same float64 path: the card
         has native complex128."""
+        _, prices = self._price_panel(option_chain, params, variable_type=variable_type,
+                                      vol_scaler=vol_scaler, precision=precision)
+        return option_chain.unpad_panel(prices)
+
+    def _price_panel(self, option_chain: OptionChain, params: HestonParams,
+                     variable_type: VariableType = VariableType.LOG_RETURN,
+                     vol_scaler: Optional[float] = None,
+                     precision: str = "exact") -> Tuple[ChainGrid, torch.Tensor]:
+        """(grid, padded price panel) of :meth:`price_chain`."""
         if precision not in ("exact", "fast"):
             raise NotImplementedError(f"precision={precision}")
         if vol_scaler is None:
             vol_scaler = default_vol_scaler(params.v0, float(option_chain.ttms[0]))
+        grid = option_chain.to_grid(device=self.device)
         prices = heston_chain_price_grid(
-            option_chain.to_grid(device=self.device), v0=float(params.v0),
-            theta=float(params.theta), kappa=float(params.kappa),
-            volvol=float(params.volvol), rho=float(params.rho),
-            vol_scaler=float(vol_scaler), variable_type=variable_type)
-        return option_chain.unpad_panel(prices)
+            grid, v0=float(params.v0), theta=float(params.theta), kappa=float(params.kappa),
+            volvol=float(params.volvol), rho=float(params.rho), vol_scaler=float(vol_scaler),
+            variable_type=variable_type, ttms_static=tuple(float(t) for t in option_chain.ttms))
+        return grid, prices
+
+    def compute_model_ivols_for_chain(self, option_chain: OptionChain, params: HestonParams,
+                                      precision: str = "exact", **kwargs) -> List[np.ndarray]:
+        """model implied vols for the chain.
+
+        ``precision='exact'`` inverts by the 200-step bisection; ``'fast'``
+        inverts the same float64 prices by the fast implied vol (bisection +
+        Newton), NaN on padded slots, as the JAX package's fused fast path
+        does (whose closed form runs in float32 there).
+        """
+        if precision != "fast":
+            return super().compute_model_ivols_for_chain(
+                option_chain=option_chain, params=params, precision=precision, **kwargs)
+        grid, prices = self._price_panel(
+            option_chain, params, variable_type=kwargs.pop("variable_type", VariableType.LOG_RETURN),
+            vol_scaler=kwargs.pop("vol_scaler", None), precision=precision)
+        vols = bsm.infer_bsm_implied_vol_fast(
+            forward=grid.forwards[:, None], ttm=grid.ttms[:, None], strike=grid.strikes,
+            given_price=prices, discfactor=grid.discfactors[:, None],
+            optiontype=grid.optioncodes)
+        return option_chain.unpad_panel(torch.where(grid.mask, vols, torch.nan))
 
     def model_mc_price_chain(self, option_chain: OptionChain, params: HestonParams,
                              nb_path: int = 100000,
@@ -278,3 +324,196 @@ class HestonPricer(ModelPricer):
             qvar0=torch.zeros(nb_path, **f64), ttm=ttm, theta=params.theta,
             kappa=params.kappa, rho=params.rho, volvol=params.volvol)
         return x.cpu().numpy(), var.cpu().numpy(), qvar.cpu().numpy()
+
+    @timer
+    def calibrate_model_params_to_chain(self,
+                                        option_chain: OptionChain,
+                                        params0: Optional[HestonParams] = None,
+                                        is_vega_weighted: bool = True,
+                                        is_unit_ttm_vega: bool = False,
+                                        use_float32: Optional[bool] = None,
+                                        **kwargs) -> HestonParams:
+        """fit (v0, theta, kappa, rho, volvol) to the chain's mid vols.
+
+        ``method='slsqp'`` (default): scipy SLSQP with the JAX package's
+        bounds, the Feller inequality 2 kappa theta >= volvol^2 as a
+        constraint with its analytic Jacobian, ``ftol`` 1e-8 and ``maxiter``
+        200.  The objective is the vega-weighted squared error of the
+        200-step bisection ivols, NaN vols dropped, and its gradient comes
+        from one ``torch.autograd`` backward on the pricer's device.
+        ``method='lm'``: :func:`calibrate_heston_lm`, ``nb_iters=16`` unless
+        given, the whole fit one CUDA graph on a card.  Either way the
+        transform grid is frozen at min(0.3, sqrt(p0[0] ttm0)), and the
+        result (scipy's, or the LM's with its best cost as ``fun``) is kept
+        as ``self.calibration_result``.  ``use_float32`` is accepted and
+        mapped to float64.
+        """
+        del use_float32
+        method = kwargs.pop("method", "slsqp")
+        if method not in ("slsqp", "lm"):
+            raise ValueError(f"method must be 'slsqp' or 'lm', got {method!r}")
+        p0 = params0.to_array() if params0 is not None else HESTON_P0.copy()
+        if method == "lm":
+            nb_iters = kwargs.pop("nb_iters", 16)
+            fit, cost = calibrate_heston_lm(
+                option_chain, HestonParams(*p0), nb_iters=nb_iters,
+                is_vega_weighted=is_vega_weighted, is_unit_ttm_vega=is_unit_ttm_vega,
+                device=self.device)
+            self.calibration_result = OptimizeResult(x=fit.to_array(), fun=cost, nit=nb_iters)
+            return fit
+        objective, feller, feller_jac = self._slsqp_problem(option_chain, p0, is_vega_weighted,
+                                                            is_unit_ttm_vega)
+        constraints = ({'type': 'ineq', 'fun': feller, 'jac': feller_jac})
+        options = {'ftol': 1e-8, 'maxiter': 200}
+        res = minimize(objective, p0, jac=True, method='SLSQP', constraints=constraints,
+                       bounds=HESTON_BOUNDS, options=options)
+        self.calibration_result = res
+        v0, theta, kappa, rho, volvol = (float(v) for v in res.x)
+        return HestonParams(v0=v0, theta=theta, kappa=kappa, rho=rho, volvol=volvol)
+
+    def _slsqp_problem(self, option_chain: OptionChain, p0: np.ndarray, is_vega_weighted: bool,
+                       is_unit_ttm_vega: bool):
+        """(objective, feller, feller_jac) of the SLSQP fit: ``objective(x)``
+        returns (loss, gradient) as (float, numpy) from one forward and one
+        backward pass on the pricer's device."""
+        grid, market_vols, weights, vol_scaler = _calibration_targets(
+            option_chain, p0, is_vega_weighted, is_unit_ttm_vega, self.device)
+        ttms_static = tuple(float(t) for t in option_chain.ttms)
+        f64 = dict(dtype=torch.float64, device=self.device)
+
+        def objective(x: np.ndarray):
+            pars = torch.tensor(np.asarray(x, dtype=np.float64), requires_grad=True, **f64)
+            loss = _heston_calibration_objective(pars, grid, market_vols, weights, vol_scaler,
+                                                 ttms_static)
+            (grad,) = torch.autograd.grad(loss, pars)
+            return float(loss.detach()), grad.cpu().numpy().astype(np.float64)
+
+        def feller(pars: np.ndarray) -> float:
+            return 2.0 * pars[2] * pars[1] - pars[4] * pars[4]
+
+        def feller_jac(p: np.ndarray) -> np.ndarray:
+            return np.array([0.0, 2.0 * p[2], 2.0 * p[1], 0.0, -2.0 * p[4]])
+
+        return objective, feller, feller_jac
+
+
+# ----------------------------------------------------------------------------
+# calibration
+# ----------------------------------------------------------------------------
+
+# start point and bounds of (v0, theta, kappa, rho, volvol), the JAX package's
+HESTON_P0 = np.array([0.1, 0.1, 2.0, -0.2, 1.0])
+HESTON_BOUNDS = ((0.01, 2.0), (0.01, 2.0), (0.1, 30.0), (-0.99, 0.99), (0.1, 5.0))
+
+
+def _calibration_targets(option_chain: OptionChain, p0: np.ndarray, is_vega_weighted: bool,
+                         is_unit_ttm_vega: bool, device
+                         ) -> Tuple[ChainGrid, torch.Tensor, torch.Tensor, float]:
+    """(grid, market vol panel, weight panel, frozen vol scaler): the panels
+    are float64 tensors on ``device``, 0 on padded slots; the weights are the
+    slice-normalised BSM vegas at the mid vols, or ones; the transform grid
+    is frozen at min(0.3, sqrt(p0[0] ttm0))."""
+    grid = option_chain.to_grid(device=device)
+    mask = grid.mask.cpu().numpy()
+    market_vols = _pad_panel(option_chain.get_mid_vols(), grid)
+    if is_vega_weighted:
+        vegas_ttms = option_chain.get_chain_vegas(is_unit_ttm_vega=is_unit_ttm_vega)
+        weights = _pad_panel([v / np.sum(v) for v in vegas_ttms], grid)
+    else:
+        weights = np.ones_like(market_vols)
+    f64 = dict(dtype=torch.float64, device=device)
+    vol_scaler = float(np.minimum(0.3, np.sqrt(p0[0] * option_chain.ttms[0])))
+    return (grid, torch.as_tensor(np.where(mask, market_vols, 0.0), **f64),
+            torch.as_tensor(np.where(mask, weights, 0.0), **f64), vol_scaler)
+
+
+def _heston_calibration_objective(pars: torch.Tensor, grid: ChainGrid,
+                                  market_vols: torch.Tensor, weights: torch.Tensor,
+                                  vol_scaler, ttms_static: Tuple[float, ...]) -> torch.Tensor:
+    """vega-weighted sum of squared implied-vol residuals of the 200-step
+    bisection; NaN vols are masked before squaring (``where(isnan(r), 0, r)``
+    alone would leave a 0 * NaN = NaN in the backward pass)."""
+    v0, theta, kappa, rho, volvol = pars.unbind()
+    prices = heston_chain_price_grid(grid, v0=v0, theta=theta, kappa=kappa, volvol=volvol,
+                                     rho=rho, vol_scaler=vol_scaler, ttms_static=ttms_static)
+    model_vols = bsm.infer_bsm_ivols_from_model_chain_prices(
+        ttms=grid.ttms, forwards=grid.forwards, discfactors=grid.discfactors,
+        strikes_ttms=grid.strikes, optiontypes_ttms=grid.optioncodes, model_prices_ttms=prices)
+    nan_mask = torch.isnan(model_vols)
+    clean = torch.where(nan_mask, market_vols, model_vols)
+    resid = weights * torch.square(clean - market_vols)
+    return torch.sum(torch.where(nan_mask, 0.0, resid))
+
+
+def _heston_residuals(ttms, forwards, discfactors, strikes, optioncodes, mask, market, sqrtw,
+                      vol_scaler, *, ttms_static):
+    """the LM residual function of (v0, theta, kappa, rho, volvol): sqrt-
+    weighted fast-IV errors (0 where the model vol is NaN) and sqrt(10) x
+    the Feller gap max(volvol^2 - 2 kappa theta, 0)."""
+    grid = ChainGrid(ttms=ttms, forwards=forwards, discfactors=discfactors, strikes=strikes,
+                     optioncodes=optioncodes, mask=mask)
+    sqrt10 = math.sqrt(10.0)
+
+    def residuals(pars):
+        v0, theta, kappa, rho, volvol = pars.unbind()
+        prices = heston_chain_price_grid(grid, v0=v0, theta=theta, kappa=kappa, volvol=volvol,
+                                         rho=rho, vol_scaler=vol_scaler, ttms_static=ttms_static)
+        vols = bsm.infer_bsm_implied_vol_fast(
+            forward=grid.forwards[:, None], ttm=grid.ttms[:, None], strike=grid.strikes,
+            given_price=prices, discfactor=grid.discfactors[:, None],
+            optiontype=grid.optioncodes)
+        nan_mask = torch.isnan(vols)
+        clean = torch.where(nan_mask, market, vols)
+        r = (sqrtw * (clean - market)).reshape(-1)
+        feller = torch.clamp(volvol * volvol - 2.0 * kappa * theta, min=0.0)
+        return torch.cat([r, (sqrt10 * feller)[None]])
+
+    return residuals
+
+
+def _heston_lm_run(p0, ttms, forwards, discfactors, strikes, optioncodes, mask, market, sqrtw,
+                   lower, upper, vol_scaler, *, ttms_static, nb_iters):
+    """the whole LM fit on tensors only (so that it can be captured):
+    returns (best parameters, best cost)."""
+    residuals = _heston_residuals(ttms, forwards, discfactors, strikes, optioncodes, mask,
+                                  market, sqrtw, vol_scaler, ttms_static=ttms_static)
+    return lm_minimize(residuals, p0, lower, upper, nb_iters=nb_iters)
+
+
+def calibrate_heston_lm(option_chain: OptionChain,
+                        params0: HestonParams,
+                        nb_iters: int = 16,
+                        is_vega_weighted: bool = True,
+                        is_unit_ttm_vega: bool = False,
+                        device="cuda") -> Tuple[HestonParams, float]:
+    """(v0, theta, kappa, rho, volvol) by Levenberg-Marquardt from
+    ``params0``; returns (params, best cost).  The residuals are the
+    sqrt-weighted fast-IV errors and the Feller penalty, the box the SLSQP
+    fit's bounds, the transform grid frozen at min(0.3, sqrt(v0 ttm0)).  On
+    a CUDA device the whole fit is one CUDA graph per (panel shape,
+    ``nb_iters``, maturities), captured at its first call; inside
+    ``graphs.eager()`` it runs eagerly, with the same bits."""
+    p0 = params0.to_array()
+    grid, market, weights, vol_scaler = _calibration_targets(
+        option_chain, p0, is_vega_weighted, is_unit_ttm_vega, device)
+    f64 = dict(dtype=torch.float64, device=device)
+    inputs = (torch.as_tensor(p0, **f64), grid.ttms, grid.forwards, grid.discfactors,
+              grid.strikes, grid.optioncodes, grid.mask, market, torch.sqrt(weights),
+              torch.as_tensor(np.array([b[0] for b in HESTON_BOUNDS]), **f64),
+              torch.as_tensor(np.array([b[1] for b in HESTON_BOUNDS]), **f64),
+              torch.tensor(vol_scaler, **f64))
+    static = dict(ttms_static=tuple(float(t) for t in option_chain.ttms), nb_iters=int(nb_iters))
+    run = lambda *a: _heston_lm_run(*a, **static)
+    if graphs.use_graph(inputs[0]):
+        key = (tuple(grid.strikes.shape), static["nb_iters"], static["ttms_static"],
+               str(inputs[0].device))
+        best, cost = graphs.run_captured("heston_lm", key, run, inputs)
+    else:
+        best, cost = run(*inputs)
+    v0, theta, kappa, rho, volvol = best.cpu().numpy().astype(np.float64)
+    return HestonParams(v0=v0, theta=theta, kappa=kappa, rho=rho, volvol=volvol), float(cost)
+
+
+def v0_implied(v0: float, volvol: float, ttm: float) -> float:
+    """short-maturity v0 adjustment, v0 - volvol^2 ttm / 8."""
+    return v0 - volvol * volvol * ttm / 8.0

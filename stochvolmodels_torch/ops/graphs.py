@@ -3,10 +3,13 @@ CUDA graphs for the port's launch-bound loops.
 
 The analytic paths are thousands of small elementwise kernels, each behind a
 few microseconds of host work.  A captured CUDA graph launches them all with
-one host call.  Two calls go through this module: the 200-step BSM bisection
-(``ops/bsm.py``, one graph per panel shape) and the whole Levenberg-Marquardt
-fit (``models/logsv/fast_calibration.py``, one graph per chain shape and
-static configuration).
+one host call.  These calls go through this module: the 200-step BSM
+bisection (``ops/bsm.py``, one graph per panel shape), the whole
+Levenberg-Marquardt fit of LogSV and of Heston
+(``models/logsv/fast_calibration.py``, ``models/heston.py``), the Hawkes
+chain reprice, plain or risk-premia, and the Hawkes LM's initial state and
+its one iteration, replayed once per iteration (``models/hawkes_jd.py``);
+each is one graph per chain shape and static configuration.
 
 A graph replays the exact kernels that the eager call launches, on the same
 inputs, so its outputs equal the eager call's bit for bit.  There is no

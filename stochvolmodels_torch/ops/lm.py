@@ -6,7 +6,8 @@ damped Gauss-Newton iterations, each with the residual Jacobian from one
 ``torch.func.jacfwd`` pass, a conjugate-gradient solve of the tiny normal
 system, and a projection onto the box.  The loop has no host sync and no
 Python branch on a tensor (accept and reject are ``torch.where``), so the
-whole of it can be captured as one CUDA graph.
+whole of it, or one iteration on the state (pars, lam, best_pars,
+best_cost), can be captured as one CUDA graph.
 
 Constraints: box bounds by projection; inequality constraints are appended
 to the residual vector as one-sided penalty terms by the caller.
@@ -17,6 +18,9 @@ from typing import Callable, Tuple
 
 import torch
 from torch.func import jacfwd
+
+# (pars, lam, best_pars, best_cost)
+LMState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def cg_solve(A: torch.Tensor, b: torch.Tensor, iters: int = 8) -> torch.Tensor:
@@ -37,6 +41,43 @@ def cg_solve(A: torch.Tensor, b: torch.Tensor, iters: int = 8) -> torch.Tensor:
     return x
 
 
+def lm_init(residuals_fn: Callable[[torch.Tensor], torch.Tensor], p0: torch.Tensor,
+            lam0: float = 1e-2) -> LMState:
+    """the state before the first iteration: (pars, lam, best_pars,
+    best_cost) = (p0, lam0, p0, ||residuals_fn(p0)||^2)."""
+    lam = torch.full((), lam0, dtype=p0.dtype, device=p0.device)
+    return p0, lam, p0, torch.sum(torch.square(residuals_fn(p0)))
+
+
+def lm_step(residuals_fn: Callable[[torch.Tensor], torch.Tensor], state: LMState,
+            lower: torch.Tensor, upper: torch.Tensor) -> LMState:
+    """one damped Gauss-Newton iteration from ``state`` over the box [lower,
+    upper]; returns the next state.  The residuals and their Jacobian come
+    from one forward-mode pass (``jacfwd`` with the residuals as its aux), so
+    an iteration costs that pass and one more residual evaluation at the
+    candidate.  A candidate whose cost is NaN is rejected: ``NaN < cost`` is
+    false."""
+    pars, lam, best_pars, best_cost = state
+    n = pars.shape[0]
+    eye = torch.eye(n, dtype=pars.dtype, device=pars.device)
+    J, r = jacfwd(lambda p: (lambda res: (res, res))(residuals_fn(p)), has_aux=True)(pars)
+    cost = torch.sum(r * r)
+    g = J.T @ r
+    JTJ = J.T @ J
+    # scale-invariant damping (Marquardt): lambda * diag(JTJ)
+    D = torch.diag(torch.clamp(torch.diagonal(JTJ), min=1e-10))
+    step = cg_solve(JTJ + lam * D + 1e-12 * eye, -g, iters=n + 3)
+    cand = torch.clamp(pars + step, lower, upper)
+    new_cost = torch.sum(torch.square(residuals_fn(cand)))
+    accept = new_cost < cost
+    pars = torch.where(accept, cand, pars)
+    lam = torch.where(accept, torch.clamp(lam / 3.0, min=1e-8), torch.clamp(lam * 4.0, max=1e6))
+    better = new_cost < best_cost
+    best_pars = torch.where(better, cand, best_pars)
+    best_cost = torch.where(better, new_cost, best_cost)
+    return pars, lam, best_pars, best_cost
+
+
 def lm_minimize(residuals_fn: Callable[[torch.Tensor], torch.Tensor],
                 p0: torch.Tensor,
                 lower: torch.Tensor,
@@ -44,37 +85,15 @@ def lm_minimize(residuals_fn: Callable[[torch.Tensor], torch.Tensor],
                 nb_iters: int = 16,
                 lam0: float = 1e-2,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """minimize ||residuals_fn(p)||^2 over the box [lower, upper].
+    """minimize ||residuals_fn(p)||^2 over the box [lower, upper] in
+    ``nb_iters`` iterations of :func:`lm_step` from :func:`lm_init`.
 
-    Returns (best_params, best_cost) as tensors.  The residuals and their
-    Jacobian come from one forward-mode pass (``jacfwd`` with the residuals
-    as its aux), so an iteration costs that pass and one more residual
-    evaluation at the candidate.  Any custom operation inside
-    ``residuals_fn`` needs a forward-mode rule and a vmap rule.  A candidate
-    whose cost is NaN is rejected: ``NaN < cost`` is false.
+    Returns (best_params, best_cost) as tensors.  Any custom operation inside
+    ``residuals_fn`` needs a forward-mode rule and a vmap rule.  A caller
+    whose iteration is too large for one CUDA graph of the whole fit
+    captures :func:`lm_step` alone and replays it ``nb_iters`` times.
     """
-    n = p0.shape[0]
-    eye = torch.eye(n, dtype=p0.dtype, device=p0.device)
-    jac_and_res = jacfwd(lambda p: (lambda r: (r, r))(residuals_fn(p)), has_aux=True)
-
-    pars, best_pars = p0, p0
-    lam = torch.full((), lam0, dtype=p0.dtype, device=p0.device)
-    best_cost = torch.sum(torch.square(residuals_fn(p0)))
+    state = lm_init(residuals_fn, p0, lam0)
     for _ in range(nb_iters):
-        J, r = jac_and_res(pars)
-        cost = torch.sum(r * r)
-        g = J.T @ r
-        JTJ = J.T @ J
-        # scale-invariant damping (Marquardt): lambda * diag(JTJ)
-        D = torch.diag(torch.clamp(torch.diagonal(JTJ), min=1e-10))
-        step = cg_solve(JTJ + lam * D + 1e-12 * eye, -g, iters=n + 3)
-        cand = torch.clamp(pars + step, lower, upper)
-        new_cost = torch.sum(torch.square(residuals_fn(cand)))
-        accept = new_cost < cost
-        pars = torch.where(accept, cand, pars)
-        lam = torch.where(accept, torch.clamp(lam / 3.0, min=1e-8),
-                          torch.clamp(lam * 4.0, max=1e6))
-        better = new_cost < best_cost
-        best_pars = torch.where(better, cand, best_pars)
-        best_cost = torch.where(better, new_cost, best_cost)
-    return best_pars, best_cost
+        state = lm_step(residuals_fn, state, lower, upper)
+    return state[2], state[3]

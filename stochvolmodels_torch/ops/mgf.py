@@ -32,10 +32,13 @@ def get_phi_grid(is_spot_measure: bool = True, max_phi: int = PHI_POINTS,
     of ``np.linspace`` and of ``jnp.linspace`` as XLA compiles it, so the
     grids agree bit for bit.  ``vol_scaler`` may be a 0-dim float64 tensor on
     ``device`` (a captured calibration takes it as an input); the grid then
-    has the same bits as from the Python float.
+    has the same bits as from the Python float.  So may ``real_phi`` (the
+    risk-premia grid's -1/2 - gamma).
     """
     if real_phi is None:
         real_p = -0.5 if is_spot_measure else 0.5
+    elif isinstance(real_phi, torch.Tensor):
+        real_p = real_phi.to(torch.float64)
     else:
         real_p = float(real_phi)
     div = max_phi - 1
@@ -49,7 +52,8 @@ def get_phi_grid(is_spot_measure: bool = True, max_phi: int = PHI_POINTS,
         stop = 5.6 / float(vol_scaler)
         step, end = stop / div, torch.full((1,), stop, dtype=torch.float64, device=device)
     p = torch.cat([torch.arange(div, dtype=torch.float64, device=device) * step, end])
-    return torch.complex(torch.full_like(p, real_p), p)
+    re = real_p.expand(p.shape) if isinstance(real_p, torch.Tensor) else torch.full_like(p, real_p)
+    return torch.complex(re, p)
 
 
 def get_transform_var_grid(variable_type: VariableType = VariableType.LOG_RETURN,
@@ -121,7 +125,7 @@ def _real_over(w: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
 
 
 def _payoff_weights(phi_grid: torch.Tensor, dp: torch.Tensor, real_phi_is_half: bool,
-                    shift: float) -> torch.Tensor:
+                    shift) -> torch.Tensor:
     """the capped-payoff kernel -(dp/pi) / ((phi + shift + 1)(phi + shift));
     with ``real_phi_is_half`` its real form on Re phi = -1/2,
     (dp/pi) / (p^2 + 1/4)."""
@@ -192,11 +196,11 @@ def vanilla_slice_pricer_with_mgf_grid(log_mgf_grid: torch.Tensor, phi_grid: tor
 
 def slice_pricer_with_mgf_grid_with_gamma(log_mgf_grid: torch.Tensor,
                                           phi_grid: torch.Tensor,
-                                          risk_premia_gamma: float,
+                                          risk_premia_gamma,
                                           ttm: float,
-                                          forward: float,
-                                          normalizer: float,
-                                          gamma_forward: float,
+                                          forward,
+                                          normalizer,
+                                          gamma_forward,
                                           strikes,
                                           optiontypes,
                                           discfactor=1.0,
@@ -208,14 +212,18 @@ def slice_pricer_with_mgf_grid_with_gamma(log_mgf_grid: torch.Tensor,
     The payoff kernel is shifted by gamma, -1/((phi + gamma + 1)(phi +
     gamma)); calls assemble against the gamma-forward and the gamma-strike
     K^(1 + gamma) with the MGF normalizer.  ``ttm`` and ``discfactor`` are
-    unused, as in the JAX package.
+    unused, as in the JAX package.  ``risk_premia_gamma``, ``forward``,
+    ``normalizer`` and ``gamma_forward`` are Python floats or 0-dim float64
+    tensors on the grid's device (a captured reprice takes them as tensors).
     """
     if not is_spot_measure:
         raise NotImplementedError("gamma kernel only under the spot measure")
     dp = compute_integration_weights(var_grid=phi_grid, is_simpson=is_simpson)
-    p_payoff = _payoff_weights(phi_grid, dp, real_phi_is_half, shift=float(risk_premia_gamma))
+    if not isinstance(risk_premia_gamma, torch.Tensor):
+        risk_premia_gamma, forward = float(risk_premia_gamma), float(forward)
+    p_payoff = _payoff_weights(phi_grid, dp, real_phi_is_half, shift=risk_premia_gamma)
     strikes = torch.as_tensor(strikes, dtype=torch.float64, device=phi_grid.device)
-    x = torch.log(float(forward) / strikes)
+    x = torch.log(forward / strikes)
     capped = _nansum_re(p_payoff, _log_moneyness_exponent(x, phi_grid, log_mgf_grid), dim=-1)
 
     is_call = (as_option_codes(optiontypes, strikes.device) & 1).to(torch.bool)

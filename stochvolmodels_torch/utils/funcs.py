@@ -13,6 +13,11 @@ from typing import Sequence, Tuple
 import numpy as np
 
 
+def to_flat_np_array(input_list: Sequence[np.ndarray]) -> np.ndarray:
+    """concatenate a list of per-maturity arrays into one flat numpy array."""
+    return np.concatenate([np.asarray(a) for a in input_list]).ravel()
+
+
 def set_time_grid(ttm: float, nb_steps_per_year: int = 360) -> Tuple[int, float, np.ndarray]:
     """simulation time grid for one maturity.
 

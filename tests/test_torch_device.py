@@ -5,7 +5,8 @@
     CPU default): each default names a CUDA device;
 (b) on a PyTorch without CUDA, as here, a call on the default device raises
     instead of running on the CPU: the pricers, the fast implied vol, and
-    the calibrations (SLSQP, LM and Adam).
+    the calibrations (LogSV SLSQP, LM and Adam; Heston SLSQP and LM; Hawkes
+    SLSQP, LM and the risk-premia fit).
 """
 import importlib
 import inspect
@@ -46,9 +47,12 @@ def test_no_device_parameter_defaults_to_the_cpu():
             with_device[name] = param.default
     # the pricers, the chain lowering, the grids, the MC chain pricers, the
     # generator, the LM and Adam calibrations
-    assert len(with_device) >= 16, sorted(with_device)
-    assert "stochvolmodels_torch.models.logsv.fast_calibration.calibrate_logsv_lm_on_device" \
-        in with_device
+    assert len(with_device) >= 18, sorted(with_device)
+    for name in ("models.logsv.fast_calibration.calibrate_logsv_lm_on_device",
+                 "models.heston.calibrate_heston_lm",
+                 "models.hawkes_jd.calibrate_hawkesjd_lm_on_device",
+                 "models.hawkes_jd.hawkesjd_forwards_under_risk_kernel"):
+        assert f"stochvolmodels_torch.{name}" in with_device, name
     not_cuda = {name: d for name, d in with_device.items()
                 if d is None or torch.device(d).type != "cuda"}
     assert not not_cuda, not_cuda
@@ -82,6 +86,31 @@ def default_device_calls():
             chain, svt.LOGSV_BTC_PARAMS),
         "calibrate_logsv_on_device": lambda: svt.calibrate_logsv_on_device(
             chain, svt.LOGSV_BTC_PARAMS),
+        "HestonPricer.compute_model_ivols_for_chain(fast)":
+            lambda: svt.HestonPricer().compute_model_ivols_for_chain(
+                chain, svt.BTC_HESTON_PARAMS, precision="fast"),
+        "HestonPricer.calibrate_model_params_to_chain(slsqp)":
+            lambda: svt.HestonPricer().calibrate_model_params_to_chain(chain, svt.BTC_HESTON_PARAMS),
+        "HestonPricer.calibrate_model_params_to_chain(lm)":
+            lambda: svt.HestonPricer().calibrate_model_params_to_chain(
+                chain, svt.BTC_HESTON_PARAMS, method="lm"),
+        "calibrate_heston_lm": lambda: svt.calibrate_heston_lm(chain, svt.BTC_HESTON_PARAMS),
+        "HawkesJDPricer.price_chain": lambda: svt.HawkesJDPricer().price_chain(
+            chain, svt.HawkesJDParams()),
+        "HawkesJDPricer.compute_model_ivols_for_chain(fast)":
+            lambda: svt.HawkesJDPricer().compute_model_ivols_for_chain(
+                chain, svt.HawkesJDParams(), precision="fast"),
+        "HawkesJDPricer.calibrate_model_params_to_chain(slsqp)":
+            lambda: svt.HawkesJDPricer().calibrate_model_params_to_chain(
+                chain, svt.HawkesJDParams()),
+        "HawkesJDPricer.calibrate_model_params_to_chain(lm)":
+            lambda: svt.HawkesJDPricer().calibrate_model_params_to_chain(
+                chain, svt.HawkesJDParams(), method="lm"),
+        "HawkesJDPricer.calibrate_risk_premia_gamma_to_chain":
+            lambda: svt.HawkesJDPricer().calibrate_risk_premia_gamma_to_chain(
+                chain, svt.HawkesJDParams(risk_premia_gamma=0.5)),
+        "calibrate_hawkesjd_lm_on_device": lambda: svt.calibrate_hawkesjd_lm_on_device(
+            chain, svt.HawkesJDParams()),
     }
 
 
@@ -92,7 +121,16 @@ def default_device_calls():
                                   "LogSVPricer.compute_model_ivols_for_chain(fast)",
                                   "LogSVPricer.calibrate_model_params_to_chain(slsqp)",
                                   "LogSVPricer.calibrate_model_params_to_chain(lm)",
-                                  "calibrate_logsv_lm_on_device", "calibrate_logsv_on_device"])
+                                  "calibrate_logsv_lm_on_device", "calibrate_logsv_on_device",
+                                  "HestonPricer.compute_model_ivols_for_chain(fast)",
+                                  "HestonPricer.calibrate_model_params_to_chain(slsqp)",
+                                  "HestonPricer.calibrate_model_params_to_chain(lm)",
+                                  "calibrate_heston_lm", "HawkesJDPricer.price_chain",
+                                  "HawkesJDPricer.compute_model_ivols_for_chain(fast)",
+                                  "HawkesJDPricer.calibrate_model_params_to_chain(slsqp)",
+                                  "HawkesJDPricer.calibrate_model_params_to_chain(lm)",
+                                  "HawkesJDPricer.calibrate_risk_premia_gamma_to_chain",
+                                  "calibrate_hawkesjd_lm_on_device"])
 def test_default_device_call_raises_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("this PyTorch has a CUDA device: the default device runs")

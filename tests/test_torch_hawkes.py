@@ -346,7 +346,5 @@ def test_unported_options_raise():
         pricer.model_mc_price_chain(ct, pt, engine="qmc", nb_path=256)
     with pytest.raises(NotImplementedError):
         pricer.price_chain(ct, pt, variable_type=svt.VariableType.Q_VAR)
-    with pytest.raises(NotImplementedError):
-        pricer.calibrate_model_params_to_chain(ct, pt)
-    with pytest.raises(NotImplementedError):
-        pricer.calibrate_risk_premia_gamma_to_chain(ct, pt)
+    with pytest.raises(ValueError):
+        pricer.calibrate_model_params_to_chain(ct, pt, method="bfgs")

@@ -30,6 +30,10 @@ class _Block(importlib.abc.MetaPathFinder):
 
 
 sys.meta_path.insert(0, _Block())
+# as if not installed: an import raises, while importlib.util.find_spec (the
+# probe torch makes when forward-mode AD first loads its compiler) says None
+for name in BLOCKED:
+    sys.modules[name] = None
 import numpy as np
 import stochvolmodels_torch as svt
 
@@ -52,7 +56,12 @@ hawkes_mc, _ = hawkes.model_mc_price_chain(
     svt.OptionChain.get_slices_as_chain(chain, ids=["2w"]), svt.HawkesJDParams(), nb_path=256,
     engine="cuda")
 assert np.all(np.isfinite(hawkes_mc[0]))
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+two = svt.OptionChain.get_slices_as_chain(chain, ids=["2w", "1m"])
+_, heston_cost = svt.calibrate_heston_lm(two, svt.BTC_HESTON_PARAMS, nb_iters=1, device="cpu")
+_, hawkes_cost = svt.calibrate_hawkesjd_lm_on_device(two, svt.HawkesJDParams(), nb_iters=1,
+                                                     year_steps=60, device="cpu")
+assert np.isfinite(heston_cost) and np.isfinite(hawkes_cost), (heston_cost, hawkes_cost)
+loaded = sorted(m for m, mod in sys.modules.items() if m.split(".")[0] in BLOCKED and mod is not None)
 assert not loaded, loaded
 print("ok", len(prices))
 '''
@@ -60,8 +69,8 @@ print("ok", len(prices))
 
 def test_port_imports_and_prices_without_jax_pandas_matplotlib_triton():
     """LogSV, Heston and Hawkes analytic prices, the rough and Hawkes MC's
-    plain kernel versions, in a process that cannot import jax, pandas,
-    matplotlib or triton."""
+    plain kernel versions, and one Heston and one Hawkes LM iteration, in a
+    process that cannot import jax, pandas, matplotlib or triton."""
     out = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, capture_output=True,
                          text=True, timeout=300, env=dict(os.environ, PYTHONPATH=str(REPO)))
     assert out.returncode == 0, out.stderr
