@@ -39,7 +39,14 @@ captured and eager, bit for bit), the Hawkes reprice as one CUDA graph
 bit, with kernels and host launch calls per call) and Hawkes calibration
 (16 LM iterations at 720 RK4 steps/yr, one graph an iteration, captured and
 eager, bit for bit; one 8-parameter SLSQP fit and one risk-premia fit on
-the first two BTC slices).
+the first two BTC slices).  Then LogSV beyond log-return pricing: the Q_VAR
+reprice of the QV chain (one CUDA graph, captured against eager bit for
+bit, GPU against CPU, device busy time and idle share), the log-return, QV
+and vol densities at the stiff paper parameters, Q_VAR chain MC through
+the logsv_mc kernel (its launch count is the kernels line's ``launches``
+for logsv_mc), the antithetic, QMC and fixed-randoms MC engines on BTC, and
+the MC, QMC and varswap-backbone fits and one rough-MC objective on the
+first two BTC slices.
 Each phase prints one line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 it exits 1 and prints no result.
@@ -103,6 +110,20 @@ HESTON_LM_ITERS = 16
 # ftol of 1e-16 is never met, so it runs to maxiter)
 HAWKES_LM_ITERS, HAWKES_LM_YEAR_STEPS, HAWKES_LM_CHECK_ITERS = 16, 720, 2
 HAWKES_FIT_SLICES, HAWKES_GAMMA_MAXITER = 2, 20
+# LogSV beyond LOG_RETURN: the README parameters on the QV chain; the stiff paper parameters of
+# tests/test_logsv.py's density test; Q_VAR MC at 1440 steps/yr (its Euler gap at 360 steps/yr
+# reaches 4-30% on the 1w slice, at 1440 about 1-2%), held to 4 stderr + 2% + 2e-4
+README_PARAMS = dict(sigma0=0.8, theta=1.0, kappa1=5.0, kappa2=5.0, beta=0.15, volvol=2.0)
+STIFF_PARAMS = dict(sigma0=0.8327, theta=1.0139, kappa1=4.8609, kappa2=4.7940, beta=0.1988,
+                    volvol=2.3694)
+PDF_TTM, PDF_POINTS = 0.25, 200
+QVAR_MC_STEPS_PER_YEAR = 1440
+# the MC engines on BTC (360 steps/yr), held to tests/test_logsv.py's band (4 stderr + 1.5% +
+# 1e-4 forward); the fixed-randoms prices GPU against CPU on one numpy block
+ENGINE_NB_PATH, QMC_NB_PATH, FIXED_NB_PATH, QMC_REPLICATES = 1 << 18, 1 << 17, 1 << 15, 8
+# MC calibration on the first two BTC slices: 100k paths at 360 steps/yr; the rough objective
+# (H = 0.1) GPU against CPU on one block of ROUGH_CALIB_NB_PATH paths
+MC_CALIB_NB_PATH, MC_CALIB_SLICES, ROUGH_CALIB_NB_PATH = 100000, 2, 1 << 14
 
 
 def _check(ok: bool, what: str) -> None:
@@ -395,20 +416,36 @@ def _calibration_phase(svt, gpu, chain) -> None:
           f"{gpu.calibration_result.fun:.6e}, mean |ivol - mid| {err:.5f} | {smi}", flush=True)
 
 
-def _profile_counts(fn):
-    """(device kernels, host launch calls) of one warm call of ``fn``,
-    counted by torch.profiler: the kernels the device ran, and the runtime
-    calls that launched them (``cudaLaunchKernel``, ``cudaGraphLaunch``)."""
+def _device_busy(fn):
+    """(device kernels, host launch calls, device busy ms, profiled wall ms)
+    of one warm call of ``fn`` by torch.profiler: busy is the sum of the
+    kernels' durations, the wall the host time around the call and its
+    synchronise."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.events()
-    return (sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
-            sum(1 for e in events if e.name.startswith(("cudaLaunchKernel", "cudaGraphLaunch"))))
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = 1e-3 * sum(e.time_range.elapsed_us() for e in kernels)
+    launches = sum(1 for e in events if e.name.startswith(("cudaLaunchKernel", "cudaGraphLaunch")))
+    return len(kernels), launches, busy_ms, wall_ms
+
+
+def _busy_line(counts) -> str:
+    kernels, launches, busy, wall = counts
+    return (f"{kernels} device kernels, {launches} host launch calls, device busy {busy:.2f} ms "
+            f"of {wall:.2f} ms profiled wall (idle share {1.0 - busy / wall:.1%})")
+
+
+def _profile_counts(fn):
+    """(device kernels, host launch calls) of one warm call of ``fn``."""
+    return _device_busy(fn)[:2]
 
 
 def _launches_per_inversion(svt, graphs, chain, prices) -> dict:
@@ -619,6 +656,260 @@ def _hawkes_calibration_phase(svt, kgpu, chain) -> None:
           f"from gamma {HAWKES_GAMMA}, maxiter {HAWKES_GAMMA_MAXITER}: {gamma_s:.3f} s, nfev {res.nfev}, nit {res.nit}, objective "
           f"{res.fun:.6e}, sigma {fit.sigma:.5f}, gamma {fit.risk_premia_gamma:.5f}, mean |ivol - "
           f"mid| {err:.5f} (start {err0:.5f}) | {smi}", flush=True)
+
+
+def _qvar_phase(svt, graphs) -> None:
+    """the Q_VAR reprice of the QV chain at the README parameters: one CUDA
+    graph, captured against eager bit for bit, GPU against CPU, and the
+    Fourier call struck near 0 against the analytic expected QV."""
+    smi = _smi_name_and_power()
+    chain = svt.get_qv_options_test_chain_data()
+    P = svt.LogSvParams(**README_PARAMS)
+    gpu, cpu = svt.LogSVPricer(device=DEVICE), svt.LogSVPricer(device="cpu")
+    qvar = svt.VariableType.Q_VAR
+    reprice = lambda: gpu.price_chain(chain, P, variable_type=qvar)
+    graphs.REPLAYS.clear()
+    prices, capture_s, captured_s, eager_s = _captured_and_eager(graphs, reprice, repeats=3)
+    _check(graphs.REPLAYS["logsv_qvar_price"] == 4,
+           f"Q_VAR reprice: {graphs.REPLAYS['logsv_qvar_price']} graph replays")
+    t0 = time.perf_counter()
+    prices_cpu = cpu.price_chain(chain, P, variable_type=qvar)
+    cpu_s = time.perf_counter() - t0
+    gap = 0.0
+    for pg, pc, fwd in zip(prices, prices_cpu, chain.forwards):
+        _check(np.all(np.isfinite(pg)) and np.all((pg > 0.0) & (pg < 1.0)),
+               f"Q_VAR prices not sane: {pg}")
+        _check(np.max(np.abs(pg - pc)) <= 1e-10 * fwd, "Q_VAR GPU prices differ from CPU prices")
+        gap = max(gap, float(np.max(np.abs(pg - pc)) / fwd))
+    captured = _device_busy(reprice)
+    with graphs.eager():
+        eager = _device_busy(reprice)
+    ttm = 0.5
+    fwd = svt.compute_analytic_qvar(params=P, ttm=ttm)
+    near0 = svt.OptionChain.slice_to_chain(ttm=ttm, forward=fwd, strikes=np.array([1e-8, 0.5 * fwd]),
+                                           optiontypes=np.array(['C', 'C']))
+    fp = gpu.price_chain(near0, P, variable_type=qvar)[0]
+    rel = [abs(fp[0] - fwd) / fwd, abs(fp[1] - 0.5 * fwd) / fwd]
+    _check(max(rel) < 0.02, f"Q_VAR call near 0 {fp} vs analytic QV {fwd}")
+    print(f"[qvar] QV chain ({len(chain.ttms)} x {len(chain.strikes_ttms[0])} calls, 40000-point "
+          f"Psi grid, RK4 at 720 steps/yr): GPU vs CPU max |dprice|/fwd {gap:.2e} (CPU {cpu_s:.2f} "
+          f"s); captured equal bit for bit to eager; capture (first call) {capture_s:.3f} s; warm "
+          f"captured {1e3 * captured_s:.1f} ms, eager {1e3 * eager_s:.1f} ms (median of 3, in "
+          f"turns); captured: {_busy_line(captured)}; eager: {_busy_line(eager)}; 0.5y call "
+          f"struck at 1e-8 {fp[0]:.6f} and at QV/2 {fp[1]:.6f} vs analytic QV {fwd:.6f} (rel "
+          f"{rel[0]:.2e}, {rel[1]:.2e}) | {smi}", flush=True)
+
+
+def _pdfs_phase(svt, graphs) -> None:
+    """the log-return, QV and vol densities at the stiff paper parameters:
+    mass and mean, GPU against CPU, walls and kernels captured and eager."""
+    smi = _smi_name_and_power()
+    P = svt.LogSvParams(**STIFF_PARAMS)
+    for name in ("LOG_RETURN", "Q_VAR", "SIGMA"):
+        vt = svt.VariableType[name]
+        grid = P.get_variable_space_grid(variable_type=vt, ttm=PDF_TTM, n=PDF_POINTS, n_stdevs=4.5)
+        run = lambda: [svt.logsv_pdfs(P, PDF_TTM, grid, variable_type=vt, device=DEVICE)]
+        graphs.REPLAYS.clear()
+        (pdf,), capture_s, captured_s, eager_s = _captured_and_eager(graphs, run, repeats=1)
+        _check(graphs.REPLAYS["logsv_pdf"] == 2, f"{name} density: {graphs.REPLAYS['logsv_pdf']} replays")
+        mass = float(np.nansum(pdf))
+        mean = float(np.nansum(pdf * grid) / mass)
+        _check(np.all(np.isfinite(pdf)) and 0.95 < mass < 1.05, f"{name} density mass {mass}")
+        if name != "LOG_RETURN":
+            _check(0.5 < mean < 1.5, f"{name} density mean {mean}")
+        t0 = time.perf_counter()
+        pdf_cpu = svt.logsv_pdfs(P, PDF_TTM, grid, variable_type=vt, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        dev = float(np.max(np.abs(pdf - pdf_cpu)))
+        _check(dev <= 1e-10, f"{name} density GPU vs CPU {dev}")
+        captured = _device_busy(run)
+        with graphs.eager():
+            eager = _device_busy(run)
+        print(f"[pdfs] {name} at ttm {PDF_TTM}, {PDF_POINTS} points: mass {mass:.6f}, mean "
+              f"{mean:.6f}; GPU vs CPU max |dpdf| {dev:.2e} (CPU {cpu_s:.2f} s); "
+              f"captured equal bit for bit to eager; capture {capture_s:.3f} s; warm captured "
+              f"{1e3 * captured_s:.1f} ms, eager {1e3 * eager_s:.1f} ms; captured: "
+              f"{_busy_line(captured)}; eager: {_busy_line(eager)} | {smi}", flush=True)
+
+
+def _qvar_mc_phase(svt, cuda_mc, mc_variants) -> float:
+    """Q_VAR chain prices through the logsv_mc kernel at NB_PATH paths
+    against the analytic Q_VAR prices, and the kernel against its plain
+    version on the chain's last slice at this path's steps; returns that
+    check's max absolute error."""
+    from stochvolmodels_torch.utils.funcs import set_time_grid
+
+    smi = _smi_name_and_power()
+    chain = svt.get_qv_options_test_chain_data()
+    P = svt.LogSvParams(**README_PARAMS)
+    gpu = svt.LogSVPricer(device=DEVICE)
+    qvar = svt.VariableType.Q_VAR
+    analytic = gpu.price_chain(chain, P, variable_type=qvar)
+    kw = dict(variable_type=qvar, nb_path=NB_PATH, engine="cuda", seed=24,
+              nb_steps=QVAR_MC_STEPS_PER_YEAR)
+    _reset_counts(cuda_mc, mc_variants)
+    mc, std = gpu.model_mc_price_chain(chain, P, **kw)
+    launches = _counts(cuda_mc, mc_variants)["logsv_mc"]
+    _check(launches == len(chain.ttms), f"Q_VAR MC path launched {launches} logsv_mc kernels")
+    worst = 0.0
+    for a, m, s in zip(analytic, mc, std):
+        _check(np.all(np.isfinite(m)), f"Q_VAR MC prices not finite: {m}")
+        ratio = np.abs(m - a) / (4.0 * s + 0.02 * a + 2e-4)
+        _check(np.all(ratio < 1.0), f"Q_VAR MC {m} outside 4 stderr + 2% + 2e-4 of {a}")
+        worst = max(worst, float(np.max(ratio)))
+    ms = _warm_ms(lambda: gpu.model_mc_price_chain(chain, P, **kw), repeats=3)
+    # the chain pricer's slices again (seed 24 + 7919 i), then the last slice
+    # (6m to 12m) by the kernel and by its plain version from the same state
+    state = (torch.zeros(NB_PATH, dtype=torch.float32, device=DEVICE),
+             torch.full((NB_PATH,), P.sigma0, dtype=torch.float32, device=DEVICE),
+             torch.zeros(NB_PATH, dtype=torch.float32, device=DEVICE))
+    ttms = np.concatenate([[0.0], chain.ttms])
+    step_kw = dict(theta=P.theta, kappa1=P.kappa1, kappa2=P.kappa2, beta=P.beta,
+                   volvol=P.volvol, nb_steps_per_year=QVAR_MC_STEPS_PER_YEAR)
+    for i in range(len(chain.ttms) - 1):
+        state = cuda_mc.simulate_logsv_terminal_cuda(24 + 7919 * i, *state,
+                                                     ttm=float(ttms[i + 1] - ttms[i]), **step_kw)
+    i = len(chain.ttms) - 1
+    step_kw.update(ttm=float(ttms[i + 1] - ttms[i]))
+    err = _vs_plain(f"logsv_mc (Q_VAR chain, {chain.ids[i]} slice)",
+                    set_time_grid(step_kw["ttm"], QVAR_MC_STEPS_PER_YEAR)[0],
+                    cuda_mc.simulate_logsv_terminal_cuda(24 + 7919 * i, *state, **step_kw),
+                    cuda_mc.simulate_logsv_terminal_torch(24 + 7919 * i, *state, **step_kw),
+                    ("x", "sigma", "qvar"), atol=1e-4)
+    print(f"[qvar-mc] QV chain through logsv_mc, {NB_PATH} paths at {QVAR_MC_STEPS_PER_YEAR} "
+          f"steps/yr: {launches} kernel launches for {len(chain.ttms)} maturities (counted on "
+          f"this path alone; the kernels line keeps the LOG_RETURN path's count); max |MC - "
+          f"analytic| / (4 stderr + 2% + 2e-4) {worst:.3f}; warm model_mc_price_chain {ms:.1f} ms "
+          f"| {smi}", flush=True)
+    return err
+
+
+def _mc_band(chain, analytic, mc, std, what) -> float:
+    worst = 0.0
+    for a, m, s, fwd in zip(analytic, mc, std, chain.forwards):
+        _check(np.all(np.isfinite(m)), f"{what} prices not finite: {m}")
+        ratio = np.abs(a - m) / (4.0 * s + 0.015 * a + 1e-4 * fwd)   # tests/test_logsv.py's band
+        _check(np.all(ratio < 1.0), f"{what} {m} outside 4 stderr + 1.5% + 1e-4 fwd of {a}")
+        worst = max(worst, float(np.max(ratio)))
+    return worst
+
+
+def _mc_engines_phase(svt, graphs, chain) -> None:
+    """the antithetic scan, QMC with replicates and fixed-randoms chain MC on
+    BTC, each within its band of the analytic prices, with stderrs beside the
+    plain scan's, QMC's launches per slice, and the fixed-randoms prices GPU
+    against CPU."""
+    from stochvolmodels_torch.models.logsv import pricer as lp
+
+    smi = _smi_name_and_power()
+    P = svt.LOGSV_BTC_PARAMS
+    gpu = svt.LogSVPricer(device=DEVICE)
+    analytic = gpu.price_chain(chain, P)
+    base = dict(nb_steps=MC_STEPS_PER_YEAR, seed=24)
+    runs = {"scan": dict(base, engine="scan", nb_path=ENGINE_NB_PATH),
+            "antithetic scan": dict(base, engine="scan", nb_path=ENGINE_NB_PATH, antithetic=True),
+            f"qmc ({QMC_REPLICATES} replicates)": dict(base, engine="qmc", nb_path=QMC_NB_PATH,
+                                                       qmc_replicates=QMC_REPLICATES)}
+    stderr = {}
+    for name, kw in runs.items():
+        t0 = time.perf_counter()
+        mc, std = gpu.model_mc_price_chain(chain, P, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        worst = _mc_band(chain, analytic, mc, std, name)
+        stderr[name] = float(np.mean([np.mean(s / f) for s, f in zip(std, chain.forwards)]))
+        print(f"[mc-engines] {name}, {kw['nb_path']} paths: max |MC - analytic| / band "
+              f"{worst:.3f}; mean stderr / fwd {stderr[name]:.3e} (plain scan "
+              f"{stderr['scan']:.3e}); first call {wall:.3f} s | {smi}", flush=True)
+    qmc_kw = runs[f"qmc ({QMC_REPLICATES} replicates)"]
+    qmc_call = lambda: gpu.model_mc_price_chain(chain, P, **qmc_kw)
+    captured = _device_busy(qmc_call)
+    with graphs.eager():
+        eager = _device_busy(qmc_call)
+    n = len(chain.ttms)
+    print(f"[mc-engines] QMC chain call, per slice ({n} slices): host launch calls captured "
+          f"{captured[1] / n:.0f}, eager {eager[1] / n:.0f}; device kernels captured "
+          f"{captured[0] / n:.0f}, eager {eager[0] / n:.0f}; captured: {_busy_line(captured)}; "
+          f"eager: {_busy_line(eager)} | {smi}", flush=True)
+    W0s, W1s, dts = lp.get_randoms_for_chain_valuation(chain.ttms, nb_path=FIXED_NB_PATH,
+                                                       nb_steps_per_year=MC_STEPS_PER_YEAR, seed=10)
+    fixed_kw = dict(ttms=chain.ttms, forwards=chain.forwards, discfactors=chain.discfactors,
+                    strikes_ttms=chain.strikes_ttms, optiontypes_ttms=chain.optiontypes_ttms,
+                    W0s=W0s, W1s=W1s, dts=dts, v0=P.sigma0, theta=P.theta, kappa1=P.kappa1,
+                    kappa2=P.kappa2, beta=P.beta, volvol=P.volvol)
+    t0 = time.perf_counter()
+    fg, fs = lp.logsv_mc_chain_pricer_fixed_randoms(device=DEVICE, **fixed_kw)
+    gpu_s = time.perf_counter() - t0
+    fc, _ = lp.logsv_mc_chain_pricer_fixed_randoms(device="cpu", **fixed_kw)
+    gap = max(float(np.max(np.abs(g - c)) / f) for g, c, f in zip(fg, fc, chain.forwards))
+    _check(gap <= 1e-10, f"fixed-randoms GPU prices differ from CPU: {gap}")
+    worst = _mc_band(chain, analytic, fg, fs, "fixed randoms")
+    print(f"[mc-engines] fixed randoms, {FIXED_NB_PATH} paths of numpy blocks: GPU vs CPU max "
+          f"|dprice|/fwd {gap:.2e}; max |MC - analytic| / band {worst:.3f}; GPU call "
+          f"{gpu_s:.3f} s (blocks to the card included) | {smi}", flush=True)
+
+
+def _mc_calibration_phase(svt, chain) -> None:
+    """fits on the first two BTC slices: MC SLSQP with the 'scan' and 'qmc'
+    engines, the varswap-backbone fit, and one rough-MC objective and
+    gradient GPU against CPU."""
+    from stochvolmodels_torch.models.logsv import pricer as lp
+
+    smi = _smi_name_and_power()
+    part = svt.OptionChain.get_slices_as_chain(chain, ids=chain.ids[:MC_CALIB_SLICES])
+    where = f"the first {MC_CALIB_SLICES} BTC slices ({', '.join(part.ids)})"
+    gpu = svt.LogSVPricer(device=DEVICE)
+    p0 = svt.LogSvParams(**CALIB_PARAMS0)
+    err0 = _fit_error(gpu, part, p0)
+    fits = {"MC scan": dict(calibration_engine=svt.CalibrationEngine.MC, mc_engine="scan",
+                            nb_path=MC_CALIB_NB_PATH),
+            "MC qmc": dict(calibration_engine=svt.CalibrationEngine.MC, mc_engine="qmc",
+                           nb_path=MC_CALIB_NB_PATH),
+            "PARAMS_WITH_VARSWAP_FIT (analytic)": dict(
+                model_calibration_type=svt.LogsvModelCalibrationType.PARAMS_WITH_VARSWAP_FIT)}
+    for name, kw in fits.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit = gpu.calibrate_model_params_to_chain(part, p0, **kw)
+        wall = time.perf_counter() - t0
+        res = gpu.calibration_result
+        err = _fit_error(gpu, part, fit)
+        _check(np.isfinite(res.fun) and np.isfinite(err) and err < max(err0, 0.05),
+               f"{name} fit error {err} (start {err0})")
+        extra = ""
+        if fit.vol_backbone is not None:
+            etas = fit.get_vol_backbone_etas(part.ttms)
+            _check(np.all(np.isfinite(etas) & (etas > 0.0)), f"{name}: backbone {etas}")
+            extra = f", backbone etas {np.round(etas, 5).tolist()}"
+        print(f"[mc-calibration] {name} SLSQP on {where} from bench.py's params0: {wall:.3f} s, "
+              f"nfev {res.nfev}, nit {res.nit}, objective {res.fun:.6e}, mean |ivol - mid| "
+              f"{err:.5f} (start {err0:.5f}){extra} | {smi}", flush=True)
+    rough = svt.LogSvParams(**CALIB_PARAMS0, H=0.1)
+    rough.approximate_kernel(T=float(part.ttms[-1]))
+    Z0, Z1, _ = lp.get_randoms_for_rough_vol_chain_valuation(
+        part.ttms, nb_path=ROUGH_CALIB_NB_PATH, nb_steps_per_year=MC_STEPS_PER_YEAR, seed=12)
+    x0 = np.array([rough.sigma0, rough.theta, rough.kappa1, rough.beta, rough.volvol])
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        pricer = svt.LogSVPricer(device=dev)
+        objective, *_ = pricer._slsqp_problem(
+            part, rough, svt.LogSvParams(sigma0=0.1, theta=0.1, kappa1=0.25, kappa2=0.25,
+                                         beta=-3.0, volvol=0.2),
+            svt.LogSvParams(sigma0=1.5, theta=1.5, kappa1=10.0, kappa2=10.0, beta=3.0, volvol=3.0),
+            True, False, svt.LogsvModelCalibrationType.PARAMS5, svt.ConstraintsType.UNCONSTRAINT,
+            calibration_engine=svt.CalibrationEngine.ROUGH_MC, nb_steps=MC_STEPS_PER_YEAR,
+            randoms=(Z0, Z1))
+        t0 = time.perf_counter()
+        out[dev] = objective(x0)
+        out[dev + "_s"] = time.perf_counter() - t0
+    (lg, gg), (lc, gc) = out[DEVICE], out["cpu"]
+    _check(np.isfinite(lg) and np.all(np.isfinite(gg)), f"rough objective {lg}, {gg}")
+    _check(abs(lg - lc) <= 1e-9 * abs(lc) and np.all(np.abs(gg - gc) <= 1e-9 * np.abs(gc).max()),
+           f"rough objective GPU {lg}, {gg} vs CPU {lc}, {gc}")
+    print(f"[mc-calibration] ROUGH_MC objective and gradient at H = 0.1 ({len(rough.nodes)} "
+          f"nodes, {ROUGH_CALIB_NB_PATH} paths) on {where}: GPU {lg:.9e} vs CPU {lc:.9e}, max "
+          f"|dgrad| {float(np.max(np.abs(gg - gc))):.2e} (limit 1e-9 relative); GPU "
+          f"{out[DEVICE + '_s']:.3f} s, CPU {out['cpu_s']:.3f} s | {smi}", flush=True)
 
 
 def main() -> int:
@@ -996,6 +1287,14 @@ def main() -> int:
     _heston_calibration_phase(svt, hgpu, chain)
     _hawkes_graph_phase(svt, kgpu, chain)
     _hawkes_calibration_phase(svt, kgpu, chain)
+    # 16.-20. LogSV beyond LOG_RETURN: Q_VAR, densities, Q_VAR MC through logsv_mc, the MC
+    # engines and the MC calibration
+    from stochvolmodels_torch.ops import graphs
+    _qvar_phase(svt, graphs)
+    _pdfs_phase(svt, graphs)
+    err["logsv_mc"] = max(err["logsv_mc"], _qvar_mc_phase(svt, cuda_mc, mc_variants))
+    _mc_engines_phase(svt, graphs, chain)
+    _mc_calibration_phase(svt, chain)
 
     replaces = {name: f"stochvolmodels_tpu/ops/pallas_mc.py:{line}" for name, line in
                 (("logsv_mc", 142), ("heston_mc", 282), ("rough_mc", 386), ("hawkes_mc", 588))}

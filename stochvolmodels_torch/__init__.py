@@ -4,9 +4,12 @@ stochvolmodels_torch: the PyTorch and CUDA port of stochvolmodels_tpu.
 It imports torch, numpy and scipy only — never jax and nothing of the JAX
 package, which stays beside it as the reference the port is tested against.
 It serves pricing requests for the flagship LogSV model (analytic chain
-prices through the affine-expansion Fourier engine, BSM implied vols, Monte
-Carlo, the rough lift's Monte Carlo, and calibration to a chain by SLSQP,
-Levenberg-Marquardt as one CUDA graph, or Adam), for Heston (closed-form Fourier
+prices through the affine-expansion Fourier engine, options on quadratic
+variance, the densities of the log-return, the quadratic variance and the
+vol, vol moments and the varswap backbone fit, BSM implied vols and greeks,
+Monte Carlo (plain, antithetic, randomized QMC, on fixed randoms), the rough
+lift's Monte Carlo, and calibration to a chain by SLSQP on the analytic, MC
+or rough-MC engine, Levenberg-Marquardt as one CUDA graph, or Adam), for Heston (closed-form Fourier
 prices, Monte Carlo, and calibration by SLSQP with the Feller constraint or by
 Levenberg-Marquardt) and for the Hawkes jump-diffusion model (Riccati Fourier
 prices as one CUDA graph a reprice, the risk-premia pricer, thinning Monte
@@ -24,10 +27,19 @@ from stochvolmodels_torch.config import (  # noqa: F401
     encode_optiontypes,
 )
 from stochvolmodels_torch.data.option_chain import ChainGrid, OptionChain, OptionSlice  # noqa: F401
-from stochvolmodels_torch.data.sample_chains import get_btc_test_chain_data  # noqa: F401
+from stochvolmodels_torch.data.sample_chains import (  # noqa: F401
+    get_btc_test_chain_data,
+    get_gld_test_chain_data,
+    get_gld_test_chain_data_6m,
+    get_qv_options_test_chain_data,
+    get_spy_test_chain_data,
+    get_sqqq_test_chain_data,
+    get_vix_test_chain_data,
+)
 from stochvolmodels_torch.interop import (  # noqa: F401
     chain_from_numpy,
     hawkes_params_from_numpy,
+    qmc_panels_from_numpy,
     heston_params_from_numpy,
     params_from_numpy,
 )
@@ -49,6 +61,7 @@ from stochvolmodels_torch.models.heston import (  # noqa: F401
 )
 from stochvolmodels_torch.models.logsv.affine import (  # noqa: F401
     ExpansionOrder,
+    compute_logsv_a_mgf_grid,
     func_a_ode_quadratic_terms,
     get_expansion_n,
     get_init_conditions_a,
@@ -65,20 +78,46 @@ from stochvolmodels_torch.models.logsv.pricer import (  # noqa: F401
     ConstraintsType,
     LogsvModelCalibrationType,
     LogSVPricer,
+    get_qmc_randoms_for_chain_valuation,
+    get_randoms_for_chain_valuation,
+    get_randoms_for_rough_vol_chain_valuation,
     logsv_chain_price_grid,
     logsv_mc_chain_pricer,
+    logsv_mc_chain_pricer_fixed_randoms,
+    logsv_pdfs,
+    rough_logsv_mc_chain_pricer_fixed_randoms,
     set_vol_scaler,
     simulate_logsv_terminal,
+    simulate_logsv_terminal_fixed,
+    simulate_logsv_terminal_qmc,
+    simulate_vol_paths,
+)
+from stochvolmodels_torch.models.logsv.vol_moments import (  # noqa: F401
+    compute_analytic_qvar,
+    compute_analytic_qvar_torch,
+    compute_analytic_vol_moments,
+    compute_expected_vol_t,
+    compute_sqrt_qvar_t,
+    compute_vol_moments_t,
+    fit_model_vol_backbone_to_varswaps,
 )
 from stochvolmodels_torch.models.model_pricer import ModelParams, ModelPricer  # noqa: F401
 from stochvolmodels_torch.models.rough.kernel import european_rule  # noqa: F401
 from stochvolmodels_torch.models.rough.simulation import (  # noqa: F401
     log_spot_full_combined,
+    log_spot_full_combined_fixed,
     rough_logsv_mc_chain_pricer,
     strang_step,
 )
 from stochvolmodels_torch.ops.bsm import (  # noqa: F401
+    compute_bsm_digital_delta,
+    compute_bsm_digital_price,
+    compute_bsm_forward_grid_prices,
+    compute_bsm_strike_from_delta,
+    compute_bsm_vanilla_delta,
+    compute_bsm_vanilla_gamma,
     compute_bsm_vanilla_price,
+    compute_bsm_vanilla_theta,
     compute_bsm_vanilla_vega,
     infer_bsm_implied_vol,
     infer_bsm_implied_vol_fast,
@@ -102,15 +141,24 @@ from stochvolmodels_torch.ops.cuda_mc import (  # noqa: F401
 from stochvolmodels_torch.ops.gauss import erfcc, ncdf, npdf  # noqa: F401
 from stochvolmodels_torch.ops.mgf import (  # noqa: F401
     compute_integration_weights,
+    digital_prices_with_mgf_grid,
+    digital_slice_pricer_with_mgf_grid,
     get_phi_grid,
+    get_psi_grid,
+    get_theta_grid,
     get_transform_var_grid,
+    pdf_with_mgf_grid,
+    qvar_prices_with_mgf_grid,
+    slice_qvar_pricer_with_a_grid,
     slice_pricer_with_mgf_grid_with_gamma,
     vanilla_prices_with_mgf_grid,
     vanilla_slice_pricer_with_mgf_grid,
 )
 from stochvolmodels_torch.ops.lm import lm_init, lm_minimize, lm_step  # noqa: F401
-from stochvolmodels_torch.ops.payoffs import compute_mc_vars_payoff  # noqa: F401
+from stochvolmodels_torch.ops.payoffs import compute_mc_vars_payoff, mc_vars_payoff  # noqa: F401
+from stochvolmodels_torch.ops.random import antithetic_step_normals, generator_from_seed  # noqa: F401
 from stochvolmodels_torch.utils.funcs import (  # noqa: F401
+    SeriesLike,
     find_nearest,
     npad,
     set_time_grid,

@@ -17,7 +17,8 @@ import torch
 
 from stochvolmodels_torch.config import encode_optiontypes
 from stochvolmodels_torch.ops import bsm
-from stochvolmodels_torch.utils.funcs import npad, unpad
+from stochvolmodels_torch.utils.funcs import SeriesLike, npad, unpad
+from stochvolmodels_torch.utils.var_swap import compute_var_swap_strike
 
 
 @dataclass(frozen=True)
@@ -191,6 +192,26 @@ class OptionChain:
         """ATM vol per slice: the mid vols interpolated to the forward."""
         return np.array([np.interp(x=forward, xp=strikes, fp=vols) for forward, strikes, vols
                          in zip(self.forwards, self.strikes_ttms, self.get_mid_vols())])
+
+    def get_slice_varswap_strikes(self, floor_with_atm_vols: bool = True):
+        """varswap strike per maturity from the option strip at the mid vols,
+        floored at the ATM vols by default; a Series-like (values indexed by
+        ttm, :class:`SeriesLike`), as the JAX package returns a Series."""
+        host = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64))
+        varswap_strikes = np.zeros_like(self.ttms)
+        for idx, (ttm, vols) in enumerate(zip(self.ttms, self.get_mid_vols())):
+            strikes, types = self.strikes_ttms[idx], self.optiontypes_ttms[idx]
+            mid_prices = bsm.compute_bsm_vanilla_price(
+                forward=host(self.forwards[idx]), strike=host(strikes), ttm=host(ttm),
+                vol=host(vols), optiontype=types).numpy()
+            puts = types == 'P'
+            varswap_strikes[idx] = compute_var_swap_strike(
+                put_strikes=strikes[puts], put_prices=mid_prices[puts],
+                call_strikes=strikes[~puts], call_prices=mid_prices[~puts],
+                forward=self.forwards[idx], ttm=ttm)
+        if floor_with_atm_vols:
+            varswap_strikes = np.maximum(self.get_chain_atm_vols(), varswap_strikes)
+        return SeriesLike(values=varswap_strikes, index=self.ttms)
 
     def compute_model_ivols_from_chain_data(self, model_prices,
                                             forwards: np.ndarray = None,

@@ -3,19 +3,22 @@ Carry state over from the JAX package, through plain numpy and floats only.
 
 Nothing here imports the JAX package: callers hand over what its objects hold
 (``LogSvParams.to_dict()``, ``HestonParams.to_dict()``,
-``HawkesJDParams.to_dict()``, the ragged arrays of an ``OptionChain``), so
-the same state can be fed to both packages.
+``HawkesJDParams.to_dict()``, the ragged arrays of an ``OptionChain``, a vol
+backbone Series, the uint32 QMC panels), so the same state can be fed to
+both packages.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional, Sequence
+from typing import Any, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from stochvolmodels_torch.data.option_chain import OptionChain
 from stochvolmodels_torch.models.hawkes_jd import HawkesJDParams
 from stochvolmodels_torch.models.heston import HestonParams
 from stochvolmodels_torch.models.logsv.params import LogSvParams
+from stochvolmodels_torch.utils.funcs import SeriesLike
 
 
 def params_from_numpy(d: Mapping[str, Any]) -> LogSvParams:
@@ -69,3 +72,19 @@ def chain_from_numpy(ttms: Sequence[float],
                        discfactors=None if discfactors is None else np.asarray(discfactors, dtype=float),
                        ids=None if ids is None else np.asarray(ids),
                        ticker=ticker, bid_ivs=as_list(bid_ivs), ask_ivs=as_list(ask_ivs))
+
+
+def backbone_from_numpy(backbone) -> SeriesLike:
+    """a vol backbone (the JAX package's ``pd.Series`` of etas indexed by
+    ttm, or a ``(ttms, etas)`` pair) as the port's pandas-free Series-like."""
+    if hasattr(backbone, "index") and hasattr(backbone, "to_numpy"):
+        return SeriesLike(values=np.asarray(backbone.to_numpy(), dtype=float),
+                          index=np.asarray(backbone.index, dtype=float))
+    ttms, etas = backbone
+    return SeriesLike(values=etas, index=ttms)
+
+
+def qmc_panels_from_numpy(panels, device="cuda") -> Tuple[torch.Tensor, ...]:
+    """the JAX package's ``qmc_scan_panels`` output (uint32 arrays: v_tot,
+    shift_tot, v_steps, shifts) as the port's int64 tensors on ``device``."""
+    return tuple(torch.as_tensor(np.asarray(p).astype(np.int64), device=device) for p in panels)

@@ -9,7 +9,8 @@ coefficient vector A(tau) per transform point solves the quadratic ODE
 
 with n = 3 (first order) or 5 (second order) coefficients.  The state is an
 (N, n) complex128 panel and a fixed-step RK4 advances all N transform points
-together.  Lanes that diverge are frozen at a cap (see ``solve_a_ode_grid``).
+together.  Lanes that diverge are frozen at a cap (see ``solve_a_ode_grid``);
+the stiff SIGMA and Q_VAR starts take a graded warmup schedule.
 The parameters may be 0-dim float64 tensors, so that calibration takes
 forward- and reverse-mode derivatives through the solve.
 """
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from stochvolmodels_torch.config import VariableType
+from stochvolmodels_torch.ops.mgf import PSI_SPAN, THETA_SPAN
 
 
 class ExpansionOrder(Enum):
@@ -95,6 +97,16 @@ def _tensor_of(value, like: torch.Tensor) -> torch.Tensor:
     if isinstance(value, torch.Tensor):
         return value.to(torch.float64)
     return like.new_full((), value, dtype=torch.float64)
+
+
+def f64_scalars(device, *values) -> list:
+    """the values as 0-dim float64 tensors on ``device``, made by fills (no
+    copy from the host); tensors pass through as float64.  With tensor
+    parameters ``kappa1 theta / sigma`` is a true division, as the JAX
+    package computes it (a Python number over a tensor is a reciprocal and
+    a product)."""
+    return [v.to(torch.float64) if isinstance(v, torch.Tensor)
+            else torch.full((), float(v), dtype=torch.float64, device=device) for v in values]
 
 
 def _dense(entries: dict, n: int, ndim: int, like: torch.Tensor) -> torch.Tensor:
@@ -177,6 +189,7 @@ def solve_a_ode_grid(phi_grid: torch.Tensor,
                      volvol: float,
                      is_spot_measure: bool = True,
                      a_t0: Optional[torch.Tensor] = None,
+                     is_stiff_solver: bool = False,
                      expansion_order: ExpansionOrder = ExpansionOrder.SECOND,
                      vol_backbone_eta: float = 1.0,
                      nb_steps: Optional[int] = None,
@@ -191,21 +204,65 @@ def solve_a_ode_grid(phi_grid: torch.Tensor,
     that ``_nansum_re`` always drops, so a lane once diverged stays dropped,
     as the reference's NaN lanes are.
 
+    ``warmup_scale`` (the stiffness scale of the initial transient, about
+    vartheta^2 max|A(0)|): where ``warmup_scale * dt > 0.2`` the uniform grid
+    is preceded by a graded warmup whose steps grow from 0.01/warmup_scale
+    as 0.05 t (:func:`warmup_dts`).  ``is_stiff_solver`` runs the uniform
+    phase 4x finer and, with float parameters, derives the warmup scale from
+    the data (vartheta^2 max(1, |A(0)|)).
+
     The parameters are Python floats or 0-dim float64 tensors on the grid's
     device (calibration differentiates through them); ``ttm`` and so the step
-    count are host numbers.  The graded warmup grid that serves the
-    SIGMA/QVAR seeds (``warmup_scale``) is not ported.
+    schedule are host numbers.
     """
-    if warmup_scale is not None:
-        raise NotImplementedError("the graded warmup grid serves SIGMA/QVAR seeds only")
     n = get_expansion_n(expansion_order)
+    if is_stiff_solver:
+        year_steps = 4 * year_steps
+        nb_steps = None if nb_steps is None else 4 * nb_steps
+        params = (beta, volvol)
+        if warmup_scale is None and a_t0 is not None and not any(
+                isinstance(p, torch.Tensor) for p in params):
+            # tensor parameters keep the 4x refinement only, as traced ones do
+            a0_mag = float(torch.max(torch.abs(a_t0)))
+            warmup_scale = (float(beta) ** 2 + float(volvol) ** 2) * max(1.0, a0_mag)
     if a_t0 is None:
         a_t0 = torch.zeros((phi_grid.shape[0], n), dtype=torch.complex128,
                            device=phi_grid.device)
     if nb_steps is None:
         nb_steps = max(int(np.ceil(year_steps * float(ttm))), 16)
     dt = float(ttm) / nb_steps
+    dts = warmup_dts(float(ttm), dt, warmup_scale)
+    if dts is None:
+        dts = [dt] * nb_steps
+    return _solve_a_ode_grid_dts(dts, theta, kappa1, kappa2, beta, volvol, phi_grid, psi_grid,
+                                 a_t0, is_spot_measure, expansion_order, vol_backbone_eta)
 
+
+def warmup_dts(ttm: float, dt: float, warmup_scale: Optional[float]) -> Optional[list]:
+    """the graded step schedule of a stiff start, or None where the uniform
+    step ``dt`` is stable (``warmup_scale * dt <= 0.2``).
+
+    Warmup steps start at 0.01/warmup_scale and grow as 0.05 t (the Riccati
+    transient's stiffness decays as 1/t) until they reach ``dt`` or cover
+    half the horizon; the rest runs at max(ceil(rem/dt), 16) uniform steps.
+    """
+    if warmup_scale is None or warmup_scale * dt <= 0.2:
+        return None
+    out, d, t_acc = [], 0.01 / warmup_scale, 0.0
+    while d < dt and t_acc + d < 0.5 * ttm:
+        out.append(d)
+        t_acc += d
+        d = max(d, 0.05 * t_acc)
+    rem = ttm - t_acc
+    nb_uniform = max(int(np.ceil(rem / dt)), 16)
+    return out + [rem / nb_uniform] * nb_uniform
+
+
+def _solve_a_ode_grid_dts(dts, theta, kappa1, kappa2, beta, volvol, phi_grid: torch.Tensor,
+                          psi_grid: torch.Tensor, a_t0: torch.Tensor, is_spot_measure: bool,
+                          expansion_order: ExpansionOrder, vol_backbone_eta) -> torch.Tensor:
+    """RK4 over the host step schedule ``dts`` (floats), with the divergence
+    freeze of :func:`solve_a_ode_grid`."""
     M, L0, L1, h = func_a_ode_quadratic_terms(
         theta=theta, kappa1=kappa1, kappa2=kappa2, beta=beta, volvol=volvol,
         is_spot_measure=is_spot_measure, expansion_order=expansion_order,
@@ -223,7 +280,7 @@ def solve_a_ode_grid(phi_grid: torch.Tensor,
 
     dead = bad_of(a_t0)
     A = torch.where(dead, frozen, a_t0)
-    for _ in range(nb_steps):
+    for dt in dts:
         k1 = _ode_rhs(A, M_flat, L, H)
         k2 = _ode_rhs(A + k1 * (0.5 * dt), M_flat, L, H)
         k3 = _ode_rhs(A + k2 * (0.5 * dt), M_flat, L, H)
@@ -247,7 +304,85 @@ def get_init_conditions_a(phi_grid: torch.Tensor, psi_grid: torch.Tensor,
         n_grid = theta_grid.shape[0]
     else:
         raise NotImplementedError
-    a0 = torch.zeros((n_grid, n_terms), dtype=torch.complex128, device=phi_grid.device)
-    if variable_type == VariableType.SIGMA:
-        a0[:, 1] = -theta_grid
-    return a0
+    zeros = torch.zeros((n_grid, n_terms), dtype=torch.complex128, device=phi_grid.device)
+    if variable_type != VariableType.SIGMA:
+        return zeros
+    column = torch.arange(n_terms, device=phi_grid.device) == 1
+    return torch.where(column, -theta_grid[:, None], zeros)
+
+
+def compute_logsv_a_mgf_grid(ttm: float,
+                             phi_grid: torch.Tensor,
+                             psi_grid: torch.Tensor,
+                             theta_grid: torch.Tensor,
+                             sigma0,
+                             theta,
+                             kappa1,
+                             kappa2,
+                             beta,
+                             volvol,
+                             variable_type: VariableType = VariableType.LOG_RETURN,
+                             expansion_order: ExpansionOrder = ExpansionOrder.SECOND,
+                             a_t0: Optional[torch.Tensor] = None,
+                             is_stiff_solver: bool = False,
+                             is_analytic: bool = False,
+                             is_spot_measure: bool = True,
+                             vol_backbone_eta=1.0,
+                             nb_steps: Optional[int] = None,
+                             engine: str = "f64",
+                             **kwargs
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """solve the coefficient ODEs and contract against the powers of
+    Y = sigma0 - theta; returns (A(tau) panel (N, n), log MGF (N,)).
+
+    SIGMA (seeded A^(1)(0) = -Theta, |Theta| to 600) and Q_VAR (forced by
+    -2 psi, |psi| to 4000) start stiff on a ~1/(rate * span) timescale, so
+    they run the graded warmup of :func:`solve_a_ode_grid` with
+    ``warmup_scale = rate * span``: ``span`` is the standard grid's extent
+    plus one (601 for Theta, 4001 for Psi, host constants), ``rate`` is
+    max(vartheta^2, kappa1 + kappa2) with float parameters and 40 with
+    tensor parameters (the JAX package's bound for traced ones).  Q_VAR
+    steps at int(720 * 2 sqrt(span / 1000)) = 2880 steps/yr unless
+    ``nb_steps`` is given.  ``engine`` 'f64' and 'df32' (the JAX package's
+    TPU carrier) both run the float64 RK4; ``is_analytic=True`` (the
+    exponential-Euler scheme) is not ported.
+    """
+    if engine not in ("f64", "df32"):
+        raise NotImplementedError(f"engine={engine}")
+    if is_analytic:
+        raise NotImplementedError("is_analytic=True: the exponential-Euler solve_analytic_ode_grid "
+                                  "is not ported (ROADMAP queue 1)")
+    n_terms = get_expansion_n(expansion_order)
+    if a_t0 is None:
+        a_t0 = get_init_conditions_a(phi_grid=phi_grid, psi_grid=psi_grid,
+                                     theta_grid=theta_grid, n_terms=n_terms,
+                                     variable_type=variable_type)
+    warmup_scale = None
+    if variable_type in (VariableType.SIGMA, VariableType.Q_VAR):
+        span = (THETA_SPAN if variable_type == VariableType.SIGMA else PSI_SPAN) + 1.0
+        if any(isinstance(p, torch.Tensor) for p in (beta, volvol, kappa1, kappa2)):
+            rate = 40.0
+        else:
+            rate = max(float(beta) ** 2 + float(volvol) ** 2, float(kappa1) + float(kappa2))
+        warmup_scale = rate * span
+        if variable_type == VariableType.Q_VAR and nb_steps is None:
+            year_steps_eff = int(720 * max(1.0, 2.0 * np.sqrt(span / 1000.0)))
+            nb_steps = max(int(np.ceil(year_steps_eff * float(ttm))), 16)
+    a_t1 = solve_a_ode_grid(ttm=ttm, theta=theta, kappa1=kappa1, kappa2=kappa2, beta=beta,
+                            volvol=volvol, phi_grid=phi_grid, psi_grid=psi_grid, a_t0=a_t0,
+                            is_spot_measure=is_spot_measure, expansion_order=expansion_order,
+                            vol_backbone_eta=vol_backbone_eta, nb_steps=nb_steps,
+                            warmup_scale=warmup_scale, is_stiff_solver=is_stiff_solver)
+    return a_t1, contract_log_mgf(a_t1, sigma0 - theta, expansion_order)
+
+
+def contract_log_mgf(a_t: torch.Tensor, y, expansion_order: ExpansionOrder) -> torch.Tensor:
+    """log MGF = A(tau) . (1, Y, Y^2[, Y^3, Y^4]) with Y = sigma0 - theta a
+    Python float or a 0-dim float64 tensor."""
+    y2 = y * y
+    ys = [1.0, y, y2] if expansion_order == ExpansionOrder.FIRST else [1.0, y, y2, y2 * y, y2 * y2]
+    if isinstance(y, torch.Tensor):
+        ys = torch.stack([_tensor_of(v, y) for v in ys])
+    else:
+        ys = torch.tensor(ys, dtype=torch.float64, device=a_t.device)
+    return torch.complex(a_t.real @ ys, a_t.imag @ ys)

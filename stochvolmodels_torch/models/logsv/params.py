@@ -18,6 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+from stochvolmodels_torch.config import VariableType
 from stochvolmodels_torch.models.model_pricer import ModelParams
 from stochvolmodels_torch.utils.funcs import find_nearest
 
@@ -113,3 +114,71 @@ class LogSvParams(ModelParams):
     def eta(self) -> float:
         """GIG steady-state exponent (Eq. 3.38)."""
         return 2.0 * (self.kappa2 * self.theta - self.kappa1) / self.vartheta2 - 1.0
+
+    # space grids of the density inversion
+    def get_x_grid(self, ttm: float = 1.0, n_stdevs: float = 3.0, n: int = 200) -> np.ndarray:
+        sigma_t = np.sqrt(ttm * 0.5 * (np.square(self.sigma0) + np.square(self.theta)))
+        drift = -0.5 * sigma_t * sigma_t
+        stdev = (n_stdevs + 1) * sigma_t
+        return np.linspace(-stdev + drift, stdev + drift, n)
+
+    def get_sigma_grid(self, ttm: float = 1.0, n_stdevs: float = 3.0, n: int = 200) -> np.ndarray:
+        sigma_t = np.sqrt(0.5 * (np.square(self.sigma0) + np.square(self.theta)))
+        vvol = 0.5 * np.sqrt(self.vartheta2 * ttm)
+        return np.linspace(0.0, sigma_t + n_stdevs * vvol, n)
+
+    def get_qvar_grid(self, ttm: float = 1.0, n_stdevs: float = 3.0, n: int = 200) -> np.ndarray:
+        sigma_t = np.sqrt(ttm * (np.square(self.sigma0) + np.square(self.theta)))
+        vvol = np.sqrt(self.vartheta2) * ttm
+        return np.linspace(0.0, sigma_t + n_stdevs * vvol, n)
+
+    def get_variable_space_grid(self, variable_type: VariableType = VariableType.LOG_RETURN,
+                                ttm: float = 1.0, n_stdevs: float = 3, n: int = 200
+                                ) -> np.ndarray:
+        if variable_type == VariableType.LOG_RETURN:
+            return self.get_x_grid(ttm=ttm, n_stdevs=n_stdevs, n=n)
+        if variable_type == VariableType.SIGMA:
+            return self.get_sigma_grid(ttm=ttm, n_stdevs=n_stdevs, n=n)
+        if variable_type == VariableType.Q_VAR:
+            return self.get_qvar_grid(ttm=ttm, n_stdevs=n_stdevs, n=n)
+        raise NotImplementedError(f"variable_type={variable_type}")
+
+    # the vol-moment generator Lambda^(1, k*) (Eq. 3.48)
+    def get_vol_moments_lambda(self, n_terms: int = 4) -> np.ndarray:
+        """lower-Hessenberg truncated moment generator."""
+        kappa2, kappa = self.kappa2, self.kappa
+        vartheta2, theta, theta2 = self.vartheta2, self.theta, self.theta2
+
+        def c(n: int) -> float:
+            return 0.5 * vartheta2 * n * (n - 1.0)
+
+        lambda_m = np.zeros((n_terms, n_terms))
+        lambda_m[0, 0] = -kappa
+        lambda_m[0, 1] = -kappa2
+        lambda_m[1, 0] = 2.0 * c(2) * theta
+        lambda_m[1, 1] = c(2) - 2.0 * kappa
+        lambda_m[1, 2] = -2.0 * kappa2
+        for n_ in np.arange(2, n_terms):
+            n = n_ + 1
+            c_n = c(n)
+            lambda_m[n_, n_ - 2] = c_n * theta2
+            lambda_m[n_, n_ - 1] = 2.0 * c_n * theta
+            lambda_m[n_, n_] = c_n - n * kappa
+            if n_ + 1 < n_terms:
+                lambda_m[n_, n_ + 1] = -n * kappa2
+        return lambda_m
+
+    def assert_vol_moments_stability(self, n_terms: int = 4):
+        w, _ = np.linalg.eig(self.get_vol_moments_lambda(n_terms=n_terms))
+        print(f"vol moments stable = {np.all(np.real(w) < 0.0)}")
+
+    def print_vol_moments_stability(self, n_terms: int = 4) -> None:
+        def c(n: int) -> float:
+            return 0.5 * self.vartheta2 * n * (n - 1.0)
+        for n in (2, 3, 4):
+            print(f"cond{n}:\n{c(n) - n * self.kappa}")
+        lambda_m = self.get_vol_moments_lambda(n_terms=n_terms)
+        print(f"lambda_m:\n{lambda_m}")
+        w, _ = np.linalg.eig(lambda_m)
+        print(f"eigenvalues w:\n{w}")
+        print(f"vol moments stable = {np.all(np.real(w) < 0.0)}")

@@ -17,6 +17,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+from scipy import stats
 
 from stochvolmodels_torch.config import VariableType
 from stochvolmodels_torch.data.option_chain import OptionChain
@@ -95,6 +96,14 @@ class ModelPricer(ABC):
             discfactor=discfactor, **kwargs)
         return model_prices[0], model_ivols[0]
 
+    def simulate_vol_paths(self, params: ModelParams, **kwargs):
+        """grid of vol paths."""
+        raise NotImplementedError("must be implemented in parent class")
+
+    def simulate_terminal_values(self, params: ModelParams, **kwargs):
+        """terminal realizations of (x, vol-state, qvar)."""
+        raise NotImplementedError("must be implemented in parent class")
+
     def compute_mc_chain_implied_vols(self,
                                       option_chain: OptionChain,
                                       params: ModelParams,
@@ -114,3 +123,25 @@ class ModelPricer(ABC):
             model_prices=prices, device=self.device)
         return (model_prices_ttms, ups, downs, ivols(model_prices_ttms), ivols(ups),
                 ivols(downs), option_std_ttms)
+
+    def get_log_return_mc_pdf(self, ttm: float, params: ModelParams, x_grid: np.ndarray,
+                              nb_path: int = 100000) -> np.ndarray:
+        """a Gaussian KDE (scipy, on the host) of the simulated terminal
+        values on ``x_grid``, normalised to unit sum, with NaN and |value| >
+        1e16 dropped.  As in the JAX package, every array that
+        ``simulate_terminal_values`` returns enters the KDE."""
+        t_values = np.asarray(self.simulate_terminal_values(ttm=ttm, params=params,
+                                                            nb_path=nb_path))
+        cut_off = 1e16
+        inf_nans = np.isnan(t_values)
+        inf_pos = np.greater(t_values, cut_off, where=~inf_nans)
+        inf_neg = np.less(t_values, -cut_off, where=~inf_nans)
+        print(f"in mc: num -inf = {np.sum(inf_neg)}, num +inf = {np.sum(inf_pos)}, "
+              f"num nans = {np.sum(inf_nans)}")
+        t_values = t_values[~inf_neg & ~inf_pos & ~inf_nans]
+        z = stats.gaussian_kde(t_values)(x_grid)
+        return z / np.nansum(z)
+
+    def compute_logreturn_pdf(self, params: ModelParams, **kwargs) -> np.ndarray:
+        """analytic log-return density."""
+        raise NotImplementedError("must be implemented in parent class")

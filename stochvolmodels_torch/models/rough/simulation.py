@@ -9,8 +9,10 @@ followed by the log-spot reconstruction.  Factor panels are (n, nb_path)
 tensors.  The ``'scan'`` engine runs the steps eagerly in float64 with
 normals from a ``torch.Generator``; the ``'cuda'`` engine runs them in the
 hand-written CUDA kernel ``csrc/rough_mc.cu`` (its plain version on the
-CPU).  The exact-linear ``'expm'`` drift scheme and the fixed-randoms
-variant are not ported yet.
+CPU).  The fixed-randoms variant runs the same float64 steps over
+pre-drawn normal blocks; its parameters may be 0-dim float64 tensors, so the
+rough MC calibration differentiates through it.  The exact-linear
+``'expm'`` drift scheme is not ported yet.
 """
 from __future__ import annotations
 
@@ -78,7 +80,8 @@ def strang_step(nodes: torch.Tensor, weights: torch.Tensor, v0: torch.Tensor,
     w_inv = 1.0 / torch.sum(weights, dim=0)
 
     c1 = c2 = 0.5
-    rho_comp = float(np.sqrt(1.0 - rho * rho))
+    rho_comp = (torch.sqrt(1.0 - rho * rho) if isinstance(rho, torch.Tensor)
+                else float(np.sqrt(1.0 - rho * rho)))
     sq_vw = torch.square(vw)
     sq_vhw = torch.square(volw_h)
     w_lam_vol = torch.sum(wlam * v, dim=0)
@@ -93,6 +96,31 @@ def strang_step(nodes: torch.Tensor, weights: torch.Tensor, v0: torch.Tensor,
     log_spot_h = log_s - 0.5 * term2 + rho * term1 + rho_comp * torch.sqrt(term2) * z1
     y_h = y + 0.5 * h * (vw * vw + volw_h * volw_h)
     return vol_h, y_h, log_spot_h
+
+
+def _lifted_panels(nodes, weights, sigma0, nb_path: int, dtype, device):
+    """(nodes (n, 1), weights (n, 1), v0 (n, nb_path)) of the lift, v0 the
+    factor start sigma0 / sum(weights) (``sigma0`` a float or a 0-dim tensor)."""
+    nodes_t = torch.as_tensor(np.asarray(nodes, dtype=np.float64), dtype=dtype,
+                              device=device)[:, None]
+    weights_t = torch.as_tensor(np.asarray(weights, dtype=np.float64), dtype=dtype,
+                                device=device)[:, None]
+    start = (sigma0 if isinstance(sigma0, torch.Tensor) else float(sigma0)) / torch.sum(weights_t)
+    v0 = torch.full((len(nodes), nb_path), 1.0, dtype=dtype, device=device) * start
+    return nodes_t, weights_t, v0
+
+
+def _strang_steps(nodes_t, weights_t, v0, theta, kappa1, kappa2, rho, volvol, h, normals):
+    """Strang steps from (v0, 0, 0) over ``normals``, an iterable of the
+    steps' (z0, z1) panels; returns (log-spot, factor vols, integrated
+    variance)."""
+    v = v0
+    y = torch.zeros(v0.shape[1], dtype=v0.dtype, device=v0.device)
+    log_s = torch.zeros_like(y)
+    for z0, z1 in normals:
+        v, y, log_s = strang_step(nodes_t, weights_t, v0, theta, kappa1, kappa2, rho, volvol,
+                                  log_s, v, y, h, z0, z1)
+    return log_s, v, y
 
 
 def log_spot_full_combined(nodes: np.ndarray,
@@ -112,23 +140,35 @@ def log_spot_full_combined(nodes: np.ndarray,
     """simulate (log-spot, factor vols, integrated variance) to the horizon,
     one eager Strang step at a time on the generator's device, with each
     step's two normal panels drawn from ``gen``."""
-    device = gen.device
-    n = len(nodes)
     nb_steps, dt, _ = set_time_grid(ttm=ttm, nb_steps_per_year=nb_steps_per_year)
-    nodes_t = torch.as_tensor(np.asarray(nodes, dtype=np.float64), dtype=dtype,
-                              device=device)[:, None]
-    weights_t = torch.as_tensor(np.asarray(weights, dtype=np.float64), dtype=dtype,
-                                device=device)[:, None]
-    v0 = torch.full((n, nb_path), 1.0, dtype=dtype, device=device) \
-        * (float(sigma0) / torch.sum(weights_t))
-    v = v0
-    y = torch.zeros(nb_path, dtype=dtype, device=device)
-    log_s = torch.zeros(nb_path, dtype=dtype, device=device)
-    for _ in range(nb_steps):
-        z = step_normals(gen, (2, nb_path), dtype=dtype)
-        v, y, log_s = strang_step(nodes_t, weights_t, v0, theta, kappa1, kappa2, rho, volvol,
-                                  log_s, v, y, dt, z[0], z[1])
-    return log_s, v, y
+    nodes_t, weights_t, v0 = _lifted_panels(nodes, weights, sigma0, nb_path, dtype, gen.device)
+    normals = (tuple(step_normals(gen, (2, nb_path), dtype=dtype)) for _ in range(nb_steps))
+    return _strang_steps(nodes_t, weights_t, v0, theta, kappa1, kappa2, rho, volvol, dt, normals)
+
+
+def log_spot_full_combined_fixed(nodes: np.ndarray,
+                                 weights: np.ndarray,
+                                 sigma0,
+                                 theta,
+                                 kappa1,
+                                 kappa2,
+                                 rho,
+                                 volvol,
+                                 timegrid: np.ndarray,
+                                 Z0,
+                                 Z1,
+                                 dtype: torch.dtype = torch.float64,
+                                 device="cuda"
+                                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Strang steps over pre-drawn (steps, paths) normal blocks ``Z0``,
+    ``Z1`` (numpy arrays or tensors, moved to ``device``) at the step of
+    ``timegrid``.  Parameters are floats or 0-dim float64 tensors."""
+    z0 = torch.as_tensor(Z0, dtype=dtype, device=device)
+    z1 = torch.as_tensor(Z1, dtype=dtype, device=device)
+    h = float(timegrid[1] - timegrid[0])
+    nodes_t, weights_t, v0 = _lifted_panels(nodes, weights, sigma0, z0.shape[1], dtype, device)
+    return _strang_steps(nodes_t, weights_t, v0, theta, kappa1, kappa2, rho, volvol, h,
+                         zip(z0, z1))
 
 
 def rough_logsv_mc_chain_pricer(ttms: np.ndarray,

@@ -1,5 +1,6 @@
 """
-Black-Scholes-Merton prices, vegas and implied volatilities on tensors.
+Black-Scholes-Merton prices, greeks, digitals and implied volatilities on
+tensors.
 
 PyTorch counterpart of ``stochvolmodels_tpu/ops/bsm.py``.  Every function is
 elementwise over broadcastable tensors.  Implied volatility is the reference's
@@ -22,7 +23,7 @@ import torch
 
 from stochvolmodels_torch.config import encode_optiontypes
 from stochvolmodels_torch.ops import graphs
-from stochvolmodels_torch.ops.gauss import ERFCC_COEFFS, ncdf, npdf
+from stochvolmodels_torch.ops.gauss import ERFCC_COEFFS, ncdf, norm_ppf, npdf
 
 IV_LOWER, IV_UPPER, IV_TOL = 0.01, 5.0, 1e-16
 
@@ -79,8 +80,9 @@ def compute_bsm_vanilla_price(forward, strike, ttm, vol, optiontype='C',
     return torch.where(intr, intrinsic, live)
 
 
-def compute_bsm_vanilla_vega(ttm, forward, strike, vol, optiontype=None) -> torch.Tensor:
-    """BSM vega = F n(d1) sqrt(T), zero in the intrinsic region."""
+def _safe_d1(forward, strike, ttm, vol):
+    """(inputs as float64 tensors, intrinsic mask, safe vol, safe ttm, vol
+    sqrt(T), d1) with the intrinsic region's vol and ttm set to 1."""
     device = _device_of(forward, strike, ttm, vol)
     forward, strike, ttm, vol = (_f64(a, device) for a in (forward, strike, ttm, vol))
     intr = is_intrinsic(ttm, vol)
@@ -88,8 +90,144 @@ def compute_bsm_vanilla_vega(ttm, forward, strike, vol, optiontype=None) -> torc
     safe_ttm = torch.where(ttm <= 0.0, 1.0, ttm)
     s_t = safe_vol * torch.sqrt(safe_ttm)
     d1 = torch.log(forward / strike) / s_t + 0.5 * s_t
-    vega = forward * npdf(d1) * torch.sqrt(safe_ttm)
-    return torch.where(intr, 0.0, vega)
+    return (forward, strike, ttm, vol), intr, safe_vol, safe_ttm, s_t, d1
+
+
+def compute_bsm_vanilla_vega(ttm, forward, strike, vol, optiontype=None) -> torch.Tensor:
+    """BSM vega = F n(d1) sqrt(T), zero in the intrinsic region."""
+    (forward, _, _, _), intr, _, safe_ttm, _, d1 = _safe_d1(forward, strike, ttm, vol)
+    return torch.where(intr, 0.0, forward * npdf(d1) * torch.sqrt(safe_ttm))
+
+
+compute_bsm_vanilla_price_vector = compute_bsm_vanilla_price
+compute_bsm_vanilla_vega_vector = compute_bsm_vanilla_vega
+
+
+def compute_bsm_vanilla_slice_prices(ttm, forward, strikes, vols, optiontypes,
+                                     discfactor=1.0) -> torch.Tensor:
+    """prices of one maturity slice, over its strikes."""
+    return compute_bsm_vanilla_price(forward=forward, strike=strikes, ttm=ttm, vol=vols,
+                                     optiontype=optiontypes, discfactor=discfactor)
+
+
+def compute_bsm_forward_grid_prices(ttm, forwards, strike, vol, optiontype,
+                                    discfactor=1.0) -> torch.Tensor:
+    """prices over a grid of forwards at one strike."""
+    return compute_bsm_vanilla_price(forward=forwards, strike=strike, ttm=ttm, vol=vol,
+                                     optiontype=optiontype, discfactor=discfactor)
+
+
+def compute_bsm_vanilla_delta(ttm, forward, strike, vol, optiontype,
+                              discfactor=1.0) -> torch.Tensor:
+    """BSM delta: +-N(d1) for vanilla codes, 0 for inverse codes, the
+    intrinsic step where ttm <= 0 or vol <= 0/NaN."""
+    (forward, strike, ttm, vol), intr, _, _, _, d1 = _safe_d1(forward, strike, ttm, vol)
+    codes = as_option_codes(optiontype, forward.device)
+    is_call = (codes & 1).to(torch.bool)
+    is_inverse = (codes & 2).to(torch.bool)
+    one, zero = torch.ones_like(d1), torch.zeros_like(d1)
+    intrinsic_delta = torch.where(is_call, torch.where(forward >= strike, one, zero),
+                                  torch.where(forward <= strike, -one, zero))
+    d1_sign = torch.where(is_inverse, 0.0, torch.where(is_call, 1.0, -1.0)).to(torch.float64)
+    live = discfactor * d1_sign * ncdf(d1_sign * d1)
+    return torch.where(intr, intrinsic_delta, live)
+
+
+compute_bsm_vanilla_delta_vector = compute_bsm_vanilla_delta
+
+
+def compute_bsm_vanilla_slice_deltas(ttm, forward, strikes, vols, optiontypes,
+                                     discfactor=1.0) -> torch.Tensor:
+    """deltas of one maturity slice, over its strikes."""
+    return compute_bsm_vanilla_delta(forward=forward, strike=strikes, ttm=ttm, vol=vols,
+                                     optiontype=optiontypes, discfactor=discfactor)
+
+
+def compute_bsm_vanilla_grid_deltas(ttm, forwards, strike, vol, optiontype,
+                                    discfactor=1.0) -> torch.Tensor:
+    """deltas over a grid of forwards at one strike."""
+    return compute_bsm_vanilla_delta(forward=forwards, strike=strike, ttm=ttm, vol=vol,
+                                     optiontype=optiontype, discfactor=discfactor)
+
+
+def compute_bsm_vanilla_slice_vegas(ttm, forward, strikes, vols,
+                                    optiontypes=None) -> torch.Tensor:
+    """vegas of one maturity slice, over its strikes."""
+    return compute_bsm_vanilla_vega(forward=forward, strike=strikes, ttm=ttm, vol=vols,
+                                    optiontype=optiontypes)
+
+
+compute_bsm_slice_vegas = compute_bsm_vanilla_slice_vegas
+
+
+def compute_bsm_vanilla_gamma(ttm, forward, strike, vol) -> torch.Tensor:
+    """BSM gamma = n(d1) / (F vol sqrt(T)), zero in the intrinsic region."""
+    (forward, _, _, _), intr, _, _, s_t, d1 = _safe_d1(forward, strike, ttm, vol)
+    return torch.where(intr, 0.0, npdf(d1) / (forward * s_t))
+
+
+compute_bsm_vanilla_gamma_vector = compute_bsm_vanilla_gamma
+
+
+def compute_bsm_vanilla_theta(ttm, forward, strike, vol, optiontype, discfactor=1.0,
+                              discount_rate=0.0) -> torch.Tensor:
+    """BSM theta, with the decay term -df F n(d1) vol / (2 sqrt(T)) and the
+    rate term of a call (-r df K N(d2)) or a put (+r df K N(-d2))."""
+    (forward, strike, _, _), intr, safe_vol, safe_ttm, s_t, d1 = _safe_d1(
+        forward, strike, ttm, vol)
+    is_call = _is_call(optiontype, forward.device)
+    d2 = d1 - s_t
+    decay = -discfactor * forward * npdf(d1) * safe_vol / (2.0 * torch.sqrt(safe_ttm))
+    rate_term = torch.where(is_call, -discount_rate * discfactor * strike * ncdf(d2),
+                            discount_rate * discfactor * strike * ncdf(-d2))
+    return torch.where(intr, 0.0, decay + rate_term)
+
+
+compute_bsm_vanilla_theta_vector = compute_bsm_vanilla_theta
+
+
+def compute_bsm_strike_from_delta(ttm, forward, delta, vol) -> torch.Tensor:
+    """the strike at which the BSM call delta (delta > 0) or put delta
+    (delta < 0) equals ``delta``."""
+    device = _device_of(delta, forward, ttm, vol)
+    delta, ttm, vol = (_f64(a, device) for a in (delta, ttm, vol))
+    inv_delta = torch.where(delta > 0.0, norm_ppf(torch.abs(delta)), -norm_ppf(torch.abs(delta)))
+    s_t = vol * torch.sqrt(ttm)
+    return forward * torch.exp(-s_t * (inv_delta - 0.5 * s_t))
+
+
+def _digital_d2(forward, strike, ttm, vol):
+    """(inputs, intrinsic mask, vol sqrt(T), d2) of the cash digital."""
+    device = _device_of(forward, strike, ttm, vol)
+    forward, strike, ttm, vol = (_f64(a, device) for a in (forward, strike, ttm, vol))
+    intr = is_intrinsic(ttm, vol)
+    safe_vol = torch.where(intr, 1.0, vol)
+    safe_ttm = torch.where(ttm <= 0.0, 1.0, ttm)
+    s_ttm = safe_vol * torch.sqrt(safe_ttm)
+    d2 = (torch.log(forward / strike) + 0.5 * s_ttm * s_ttm) / s_ttm - s_ttm
+    return (forward, strike), intr, s_ttm, d2
+
+
+def compute_bsm_digital_price(forward, strike, ttm, vol, optiontype='C',
+                              discfactor=1.0) -> torch.Tensor:
+    """cash digital price df N(+-d2), the indicator where ttm <= 0 or vol <= 0/NaN."""
+    (forward, strike), intr, _, d2 = _digital_d2(forward, strike, ttm, vol)
+    is_call = _is_call(optiontype, forward.device)
+    one, zero = torch.ones_like(d2), torch.zeros_like(d2)
+    intrinsic = torch.where(is_call, torch.where(forward >= strike, one, zero),
+                            torch.where(forward <= strike, one, zero))
+    live = discfactor * torch.where(is_call, ncdf(d2), ncdf(-d2))
+    return torch.where(intr, intrinsic, live)
+
+
+def compute_bsm_digital_delta(forward, strike, ttm, vol, optiontype='C',
+                              discfactor=1.0) -> torch.Tensor:
+    """cash digital delta +-df n(d2) / (F vol sqrt(T)), zero in the intrinsic region."""
+    (forward, _), intr, s_ttm, d2 = _digital_d2(forward, strike, ttm, vol)
+    is_call = _is_call(optiontype, forward.device)
+    pnorm = discfactor / (forward * s_ttm)
+    live = torch.where(is_call, pnorm * npdf(d2), -pnorm * npdf(d2))
+    return torch.where(intr, 0.0, live)
 
 
 def _bisection_impl(given_price, forward, strike, ttm, discfactor, is_call_f):
@@ -342,6 +480,44 @@ def infer_bsm_implied_vol(forward, ttm, strike, given_price, discfactor=1.0,
                             torch.full_like(res, IV_UPPER))
         res = torch.where(unbracketed, bound, res)
     return res
+
+
+def infer_bsm_ivols_from_model_slice_prices(ttm, forward, strikes, optiontypes, model_prices,
+                                            discfactor) -> torch.Tensor:
+    """implied vols of one maturity slice."""
+    return infer_bsm_implied_vol(forward=forward, ttm=ttm, strike=strikes,
+                                 given_price=model_prices, discfactor=discfactor,
+                                 optiontype=optiontypes)
+
+
+def infer_bsm_ivols_from_slice_prices(ttm, forward, discfactor, strikes, optiontypes,
+                                      model_prices) -> torch.Tensor:
+    """:func:`infer_bsm_ivols_from_model_slice_prices` with the discount
+    factor third, as the reference orders it."""
+    return infer_bsm_ivols_from_model_slice_prices(
+        ttm=ttm, forward=forward, strikes=strikes, optiontypes=optiontypes,
+        model_prices=model_prices, discfactor=discfactor)
+
+
+def compute_bsm_vanilla_deltas_ttms(ttms, forwards, strikes_ttms, vols_ttms,
+                                    optiontypes_ttms, device="cuda") -> list:
+    """deltas of a ragged chain, one numpy array per slice."""
+    host = lambda a: _f64(a, torch.device(device))
+    return [compute_bsm_vanilla_delta(ttm=host(t), forward=host(f), strike=host(s),
+                                      vol=host(v), optiontype=o).cpu().numpy()
+            for t, f, s, v, o in zip(ttms, forwards, strikes_ttms, vols_ttms, optiontypes_ttms)]
+
+
+def compute_bsm_vegas_ttms(ttms, forwards, strikes_ttms, vols_ttms, optiontypes_ttms=None,
+                           device="cuda") -> list:
+    """vegas of a ragged chain, one numpy array per slice."""
+    host = lambda a: _f64(a, torch.device(device))
+    return [compute_bsm_vanilla_vega(ttm=host(t), forward=host(f), strike=host(s),
+                                     vol=host(v)).cpu().numpy()
+            for t, f, s, v in zip(ttms, forwards, strikes_ttms, vols_ttms)]
+
+
+compute_bsm_vanilla_vegas_ttms = compute_bsm_vegas_ttms
 
 
 def infer_bsm_ivols_from_model_chain_prices(ttms, forwards, discfactors, strikes_ttms,

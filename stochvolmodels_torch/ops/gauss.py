@@ -38,3 +38,9 @@ def ncdf(x: torch.Tensor) -> torch.Tensor:
 def npdf(x: torch.Tensor, mu: float = 0.0, vol: float = 1.0) -> torch.Tensor:
     """normal density with mean mu and standard deviation vol."""
     return torch.exp(-0.5 * torch.square((x - mu) / vol)) / (vol * math.sqrt(2.0 * math.pi))
+
+
+def norm_ppf(q: torch.Tensor) -> torch.Tensor:
+    """inverse standard normal CDF, sqrt(2) erfinv(2q - 1) (exact, not the
+    erfcc fit)."""
+    return math.sqrt(2.0) * torch.erfinv(2.0 * q - 1.0)

@@ -1,9 +1,11 @@
 """
 Transform-pricing engine: Fourier inversion of payoffs against a log-MGF grid.
 
-PyTorch counterpart of ``stochvolmodels_tpu/ops/mgf.py`` for the log-return
-vanilla pricer and the risk-premia (gamma) pricer.  Complex values are
-native complex128.  The composite-Simpson weights keep the reference's
+PyTorch counterpart of ``stochvolmodels_tpu/ops/mgf.py``: the transform
+grids (Phi for log-returns, the 40,000-point Psi for quadratic variance, the
+5,000-point Theta for the vol), the vanilla, risk-premia (gamma), digital
+and quadratic-variance pricers, and the density inversion.  Complex values
+are native complex128.  The composite-Simpson weights keep the reference's
 even-length quirk (the last point of an even-length grid keeps weight 4),
 which is baked into its prices.
 """
@@ -19,6 +21,10 @@ from stochvolmodels_torch.config import VariableType
 from stochvolmodels_torch.ops.bsm import as_option_codes
 
 PHI_POINTS = 1000
+PSI_POINTS = 40000
+PSI_SPAN = 4000.0
+THETA_POINTS = 5000
+THETA_SPAN = 600.0
 
 
 def get_phi_grid(is_spot_measure: bool = True, max_phi: int = PHI_POINTS,
@@ -56,18 +62,48 @@ def get_phi_grid(is_spot_measure: bool = True, max_phi: int = PHI_POINTS,
     return torch.complex(re, p)
 
 
+def _span_grid(span: float, n: int, device) -> torch.Tensor:
+    """[0, span] in n points, rounded as ``jnp.linspace`` rounds them."""
+    div = n - 1
+    return torch.cat([torch.arange(div, dtype=torch.float64, device=device) * (span / div),
+                      torch.full((1,), span, dtype=torch.float64, device=device)])
+
+
+def get_psi_grid(max_psi: int = PSI_POINTS, device="cuda") -> torch.Tensor:
+    """quadratic-variance transform grid psi = -1/2 + i p, p in [0, 4000]."""
+    p = _span_grid(PSI_SPAN, max_psi, device)
+    return torch.complex(torch.full_like(p, -0.5), p)
+
+
+def get_theta_grid(max_theta: int = THETA_POINTS, device="cuda") -> torch.Tensor:
+    """volatility transform grid theta = i p, p in [0, 600]."""
+    p = _span_grid(THETA_SPAN, max_theta, device)
+    return torch.complex(torch.zeros_like(p), p)
+
+
 def get_transform_var_grid(variable_type: VariableType = VariableType.LOG_RETURN,
                            is_spot_measure: bool = True, max_phi: int = PHI_POINTS,
                            vol_scaler: float = 0.28, device="cuda",
                            real_phi: Optional[float] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(phi, psi, theta) grids with the two inactive grids zeroed."""
-    if variable_type != VariableType.LOG_RETURN:
-        raise NotImplementedError(f"variable_type={variable_type}")
-    phi_grid = get_phi_grid(is_spot_measure=is_spot_measure, max_phi=max_phi,
-                            vol_scaler=vol_scaler, device=device, real_phi=real_phi)
-    zero = torch.zeros_like(phi_grid)
-    return phi_grid, zero, zero
+    """(phi, psi, theta) grids with the inactive ones zeroed: LOG_RETURN runs
+    on the phi grid; Q_VAR on the psi grid with phi held at 0 (spot measure)
+    or 1 (inverse); SIGMA on the theta grid."""
+    if variable_type == VariableType.LOG_RETURN:
+        phi_grid = get_phi_grid(is_spot_measure=is_spot_measure, max_phi=max_phi,
+                                vol_scaler=vol_scaler, device=device, real_phi=real_phi)
+        zero = torch.zeros_like(phi_grid)
+        return phi_grid, zero, zero
+    if variable_type == VariableType.Q_VAR:
+        psi_grid = get_psi_grid(device=device)
+        phi_grid = torch.complex(torch.full_like(psi_grid.real, 0.0 if is_spot_measure else 1.0),
+                                 torch.zeros_like(psi_grid.real))
+        return phi_grid, psi_grid, torch.zeros_like(psi_grid)
+    if variable_type == VariableType.SIGMA:
+        theta_grid = get_theta_grid(device=device)
+        zero = torch.zeros_like(theta_grid)
+        return zero, zero, theta_grid
+    raise NotImplementedError(f"variable_type={variable_type}")
 
 
 def simpson_base_weights(n: int) -> np.ndarray:
@@ -231,3 +267,91 @@ def slice_pricer_with_mgf_grid_with_gamma(log_mgf_grid: torch.Tensor,
     call_px = gamma_forward - normalizer * gamma_strikes * capped
     put_px = strikes - normalizer * gamma_strikes * capped
     return torch.where(is_call, call_px, put_px)
+
+
+def _per_row(a, strikes: torch.Tensor):
+    """a per-slice value ``a`` (float or tensor) shaped to broadcast over the
+    strike axis of ``strikes``."""
+    if isinstance(a, torch.Tensor) and a.dim() == strikes.dim() - 1:
+        return a[..., None]
+    return a
+
+
+def digital_prices_with_mgf_grid(log_mgf_grid: torch.Tensor, phi_grid: torch.Tensor,
+                                 forwards, strikes: torch.Tensor, optiontypes,
+                                 discfactors=1.0, is_simpson: bool = True,
+                                 real_phi_negative: bool = True) -> torch.Tensor:
+    """cash-digital Fourier inversion for one slice or a stack of slices.
+
+    The kernel -(dp/pi)/phi prices calls where Re phi < 0
+    (``real_phi_negative``), +(dp/pi)/phi prices puts otherwise; the other
+    side is 1 - price.  Shapes as :func:`vanilla_prices_with_mgf_grid`.
+    """
+    dp = compute_integration_weights(var_grid=phi_grid, is_simpson=is_simpson)
+    p_payoff = _real_over(-dp / math.pi if real_phi_negative else dp / math.pi, phi_grid)
+    fwd = _per_row(forwards, strikes)
+    x = torch.log(fwd / strikes)
+    digital = _nansum_re(p_payoff, _log_moneyness_exponent(x, phi_grid, log_mgf_grid), dim=-1)
+    is_call = (as_option_codes(optiontypes, strikes.device) & 1).to(torch.bool)
+    price = torch.where(is_call == real_phi_negative, digital, 1.0 - digital)
+    return _per_row(discfactors, strikes) * price
+
+
+def digital_slice_pricer_with_mgf_grid(log_mgf_grid: torch.Tensor, phi_grid: torch.Tensor,
+                                       forward, strikes, optiontypes, discfactor=1.0,
+                                       is_simpson: bool = True) -> torch.Tensor:
+    """one slice; the call kernel is chosen from the sign of the grid's real
+    part, as the JAX package does."""
+    re0 = float(phi_grid.real.reshape(-1)[0])
+    device = phi_grid.device
+    return digital_prices_with_mgf_grid(
+        log_mgf_grid=log_mgf_grid, phi_grid=phi_grid,
+        forwards=torch.as_tensor(float(forward), dtype=torch.float64, device=device),
+        strikes=torch.as_tensor(strikes, dtype=torch.float64, device=device),
+        optiontypes=optiontypes, discfactors=discfactor, is_simpson=is_simpson,
+        real_phi_negative=re0 < 0.0)
+
+
+def qvar_prices_with_mgf_grid(log_mgf_grid: torch.Tensor, psi_grid: torch.Tensor, ttms,
+                              strikes: torch.Tensor, optiontypes, forwards=None,
+                              discfactors=1.0, is_simpson: bool = True,
+                              is_spot_measure: bool = True) -> torch.Tensor:
+    """calls on annualised quadratic variance: the kernel (dp/pi)/psi^2 against
+    the exponent strike*ttm*psi + logMGF, divided by ttm and floored at 1e-10.
+    Only calls are priced, as in the reference; ``optiontypes``,
+    ``forwards`` and ``is_spot_measure`` are accepted for its signature."""
+    dp = compute_integration_weights(var_grid=psi_grid, is_simpson=is_simpson)
+    a, b = psi_grid.real, psi_grid.imag
+    psi2 = torch.complex(a * a - b * b, a * b + b * a)
+    p_payoff = _real_over(dp / math.pi, psi2)
+    t = _per_row(ttms, strikes)
+    kt = strikes * t
+    z = torch.complex(kt[..., None] * a + log_mgf_grid.real[..., None, :],
+                      kt[..., None] * b + log_mgf_grid.imag[..., None, :])
+    option_price = _nansum_re(p_payoff, z, dim=-1)
+    return torch.clamp(_per_row(discfactors, strikes) * option_price / t, min=1e-10)
+
+
+def slice_qvar_pricer_with_a_grid(log_mgf_grid: torch.Tensor, psi_grid: torch.Tensor, ttm,
+                                  strikes, optiontypes, forward=None, discfactor=1.0,
+                                  is_simpson: bool = True,
+                                  is_spot_measure: bool = True) -> torch.Tensor:
+    """one slice of :func:`qvar_prices_with_mgf_grid`."""
+    return qvar_prices_with_mgf_grid(
+        log_mgf_grid=log_mgf_grid, psi_grid=psi_grid, ttms=ttm,
+        strikes=torch.as_tensor(strikes, dtype=torch.float64, device=psi_grid.device),
+        optiontypes=optiontypes, forwards=forward, discfactors=discfactor,
+        is_simpson=is_simpson, is_spot_measure=is_spot_measure)
+
+
+def pdf_with_mgf_grid(log_mgf_grid: torch.Tensor, transform_var_grid: torch.Tensor,
+                      space_grid: torch.Tensor, shift: float = 0.0, scale: float = 1.0,
+                      is_simpson: bool = True) -> torch.Tensor:
+    """density mass on a uniform space grid by transform inversion:
+    dx Re sum_n (dp_n/pi) exp(z_space q_n + logMGF_n), z_space = (x - shift)/scale."""
+    dp = compute_integration_weights(var_grid=transform_var_grid, is_simpson=is_simpson) / math.pi
+    z_space = (space_grid - shift) / scale                         # (M,)
+    z = torch.complex(z_space[..., None] * transform_var_grid.real + log_mgf_grid.real,
+                      z_space[..., None] * transform_var_grid.imag + log_mgf_grid.imag)
+    pdf = _nansum_re(dp, z, dim=-1)
+    return (space_grid[1] - space_grid[0]) * pdf

@@ -1,13 +1,20 @@
 """
-Monte-Carlo payoff evaluation for vanilla and inverse options.
+Monte-Carlo payoff evaluation for vanilla, inverse and quadratic-variance
+options.
 
-PyTorch counterpart of ``stochvolmodels_tpu/ops/payoffs.py`` for the plain
-estimator, computed in float64 whatever the dtype of the simulated state:
+PyTorch counterpart of ``stochvolmodels_tpu/ops/payoffs.py``, computed in
+float64 whatever the dtype of the simulated state:
 
 * simulated spots are recentred on the forward before payoffs, so put-call
   parity holds across the slice;
-* means and stds drop NaN paths;
-* the returned std is the standard error ``nanstd / sqrt(nb_path)``.
+* means and stds drop NaN paths, as ``jnp.nanmean`` and ``jnp.nanstd`` do
+  (torch has no ``nanstd``: :func:`nanstd` is written here);
+* the returned std is the standard error ``nanstd / sqrt(nb_path)``; with
+  ``antithetic`` it is taken over the P/2 pair averages, and with
+  ``nb_replicates`` R over the R replicate means (ddof 1).
+
+:func:`mc_vars_payoff` keeps tensors (the MC calibration differentiates
+through it); :func:`compute_mc_vars_payoff` returns numpy.
 """
 from __future__ import annotations
 
@@ -21,12 +28,90 @@ from stochvolmodels_torch.config import VariableType
 from stochvolmodels_torch.ops.bsm import as_option_codes
 
 
-def _nanmean_nanstd(a: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """NaN-dropping mean and population std (ddof=0) along ``dim``."""
+def nanstd(a: torch.Tensor, dim: int, ddof: int = 0) -> torch.Tensor:
+    """NaN-dropping standard deviation along ``dim``, as ``jnp.nanstd``:
+    sum over the finite-or-inf entries of (a - nanmean)^2 over (count -
+    ddof), NaN where that count is not above ``ddof``."""
+    nan = torch.isnan(a)
     mean = torch.nanmean(a, dim=dim, keepdim=True)
-    count = (~torch.isnan(a)).sum(dim=dim, keepdim=True)
-    var = torch.nansum(torch.square(a - mean), dim=dim, keepdim=True) / count
-    return mean.squeeze(dim), torch.sqrt(var).squeeze(dim)
+    centered = torch.where(nan, 0.0, a - mean)
+    count = (~nan).sum(dim=dim).to(a.dtype)
+    var = torch.sum(centered * centered, dim=dim) / (count - ddof)
+    return torch.sqrt(torch.where(count > ddof, var, torch.nan))
+
+
+def _underlying(x: torch.Tensor, qvar: torch.Tensor, ttm, forward,
+                variable_type: VariableType) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(spots recentred on the forward along the last axis, the payoff's
+    underlying): the spots for LOG_RETURN, annualised qvar for Q_VAR."""
+    spots = forward * torch.exp(x)
+    spots = spots - (torch.nanmean(spots, dim=-1, keepdim=True) - forward)
+    if variable_type == VariableType.LOG_RETURN:
+        return spots, spots
+    if variable_type == VariableType.Q_VAR:
+        return spots, qvar / ttm
+    raise NotImplementedError(f"variable_type={variable_type}")
+
+
+def _payoffs(u: torch.Tensor, spots: torch.Tensor, strikes: torch.Tensor,
+             codes: torch.Tensor) -> torch.Tensor:
+    """(K, ...) payoffs of calls and puts (inverse: over the spot) on the
+    underlying ``u`` (...), strikes and codes (K,)."""
+    extra = (None,) * u.dim()
+    k = strikes[(slice(None),) + extra]
+    c = codes[(slice(None),) + extra]
+    is_call = (c & 1).to(torch.bool)
+    is_inverse = (c & 2).to(torch.bool)
+    call_pay = torch.where(u > k, u - k, 0.0)
+    put_pay = torch.where(u < k, k - u, 0.0)
+    payoff = torch.where(is_call, call_pay, put_pay)
+    return torch.where(is_inverse, payoff / spots, payoff)
+
+
+def mc_vars_payoff(x0: torch.Tensor,
+                   qvar0: torch.Tensor,
+                   ttm,
+                   forward,
+                   strikes: torch.Tensor,
+                   codes: torch.Tensor,
+                   discfactor=1.0,
+                   variable_type: VariableType = VariableType.LOG_RETURN,
+                   antithetic: bool = False,
+                   nb_replicates: int = 0
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(discounted mean payoff, standard error) per strike, as float64
+    tensors that carry the gradients of the paths and of ``forward``.
+
+    ``strikes`` (K,) float64 and ``codes`` (K,) int8 on the paths' device;
+    ``ttm``, ``forward`` and ``discfactor`` are floats or 0-dim tensors.
+    ``antithetic``: path i and i + P/2 are a pair, the stderr is over the
+    pair averages.  ``nb_replicates`` R > 1: the paths are R contiguous
+    replicate groups, each recentred on its own, the price is the mean of
+    the replicate means and the stderr their std (ddof 1) over sqrt(R).
+    """
+    if antithetic and nb_replicates > 1:
+        raise NotImplementedError("antithetic pairing and QMC replicates are mutually "
+                                  "exclusive reductions")
+    x = x0.to(torch.float64)
+    qvar = qvar0.to(torch.float64)
+    nb_path = x.shape[0]
+    if nb_replicates > 1:
+        if nb_path % nb_replicates:
+            raise ValueError(f"nb_path={nb_path} not divisible by nb_replicates={nb_replicates}")
+        x = x.reshape(nb_replicates, -1)
+        qvar = qvar.reshape(nb_replicates, -1)
+    spots, u = _underlying(x, qvar, ttm, forward, variable_type)
+    payoff = _payoffs(u, spots, strikes, codes)
+    if nb_replicates > 1:
+        rep_means = torch.nanmean(payoff, dim=2)                     # (K, R)
+        return (discfactor * torch.nanmean(rep_means, dim=1),
+                discfactor * nanstd(rep_means, dim=1, ddof=1) / math.sqrt(nb_replicates))
+    if antithetic:
+        half = nb_path // 2
+        payoff = 0.5 * (payoff[:, :half] + payoff[:, half:])
+        nb_path = half
+    return (discfactor * torch.nanmean(payoff, dim=1),
+            discfactor * nanstd(payoff, dim=1) / math.sqrt(nb_path))
 
 
 def compute_mc_vars_payoff(x0: torch.Tensor,
@@ -41,41 +126,18 @@ def compute_mc_vars_payoff(x0: torch.Tensor,
                            antithetic: bool = False,
                            nb_replicates: int = 0
                            ) -> Tuple[np.ndarray, np.ndarray]:
-    """discounted mean payoff and standard error per strike for one slice.
+    """discounted mean payoff and standard error per strike for one slice,
+    as numpy ((K,), (K,)).
 
     ``x0``/``qvar0``: terminal log-return and quadratic variance paths
     (nb_path,); ``sigma0`` is accepted for signature symmetry and unused.
-    Returns numpy ((K,), (K,)).  The antithetic and QMC-replicate estimators
-    are not ported.
+    The reductions are those of :func:`mc_vars_payoff`.
     """
     del sigma0
-    if antithetic or nb_replicates > 1:
-        raise NotImplementedError("only the plain estimator is ported")
     device = x0.device
-    x = x0.to(torch.float64)
-    spots_t = float(forward) * torch.exp(x)
-    correction = torch.nanmean(spots_t) - float(forward)
-    spots_t = spots_t - correction
-
-    if variable_type == VariableType.LOG_RETURN:
-        underlying_t = spots_t
-    elif variable_type == VariableType.Q_VAR:
-        underlying_t = qvar0.to(torch.float64) / float(ttm)
-    else:
-        raise NotImplementedError(f"variable_type={variable_type}")
-
-    strikes = torch.as_tensor(np.asarray(strikes_ttm, dtype=np.float64), device=device)[:, None]
-    codes = as_option_codes(optiontypes_ttm, device)[:, None]
-    is_call = (codes & 1).to(torch.bool)
-    is_inverse = (codes & 2).to(torch.bool)
-
-    u = underlying_t[None, :]                                  # (1, P)
-    call_pay = torch.where(u > strikes, u - strikes, 0.0)
-    put_pay = torch.where(u < strikes, strikes - u, 0.0)
-    payoff = torch.where(is_call, call_pay, put_pay)
-    payoff = torch.where(is_inverse, payoff / spots_t[None, :], payoff)
-
-    mean, std = _nanmean_nanstd(payoff, dim=1)
-    option_prices = discfactor * mean
-    option_std = discfactor * std / math.sqrt(x0.shape[0])
-    return option_prices.cpu().numpy(), option_std.cpu().numpy()
+    strikes = torch.as_tensor(np.asarray(strikes_ttm, dtype=np.float64), device=device)
+    codes = as_option_codes(optiontypes_ttm, device)
+    prices, stds = mc_vars_payoff(x0, qvar0, float(ttm), float(forward), strikes, codes,
+                                  discfactor=float(discfactor), variable_type=variable_type,
+                                  antithetic=antithetic, nb_replicates=nb_replicates)
+    return prices.detach().cpu().numpy(), stds.detach().cpu().numpy()

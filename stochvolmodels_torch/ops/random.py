@@ -25,3 +25,14 @@ def generator_from_seed(seed: Optional[int] = None, device="cuda") -> torch.Gene
 def step_normals(gen: torch.Generator, shape, dtype=torch.float64) -> torch.Tensor:
     """standard normals for one time step, drawn from ``gen`` on its device."""
     return torch.randn(shape, generator=gen, dtype=dtype, device=gen.device)
+
+
+def antithetic_step_normals(gen: torch.Generator, shape, dtype=torch.float64) -> torch.Tensor:
+    """one step's normals whose second half of the path axis mirrors the
+    first: ``cat([w, -w])`` along the last axis, ``w`` of half width drawn
+    from ``gen``, so path i and path i + P/2 see opposite increments."""
+    *lead, nb_path = shape
+    if nb_path % 2:
+        raise ValueError(f"antithetic path count must be even, got {nb_path}")
+    w = torch.randn((*lead, nb_path // 2), generator=gen, dtype=dtype, device=gen.device)
+    return torch.cat([w, -w], dim=-1)

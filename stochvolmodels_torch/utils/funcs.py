@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import functools
 import time
+from dataclasses import dataclass
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -79,3 +80,22 @@ def unpad(dense: np.ndarray, mask: np.ndarray) -> list:
     dense = np.asarray(dense)
     mask = np.asarray(mask)
     return [dense[i][mask[i]] for i in range(dense.shape[0])]
+
+
+@dataclass
+class SeriesLike:
+    """values indexed by maturity, read as a pandas Series is read
+    (``.index``, ``.to_numpy()``), without pandas: what the port returns
+    where the JAX package returns a ``pd.Series``."""
+    values: np.ndarray
+    index: np.ndarray
+
+    def __post_init__(self):
+        self.values = np.asarray(self.values, dtype=float)
+        self.index = np.asarray(self.index, dtype=float)
+
+    def to_numpy(self) -> np.ndarray:
+        return self.values
+
+    def __len__(self) -> int:
+        return len(self.values)

@@ -224,10 +224,11 @@ def test_pricer_lm_route_and_defaults(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(calibration_engine=svt.CalibrationEngine.MC), "MC"),
-    (dict(calibration_engine=svt.CalibrationEngine.ROUGH_MC), "MC"),
-    (dict(model_calibration_type=svt.LogsvModelCalibrationType.PARAMS_WITH_VARSWAP_FIT),
-     "vol_moments"),
+    (dict(calibration_engine=svt.CalibrationEngine.MC, mc_engine="sobol"), "mc_engine"),
+    (dict(method="lm", calibration_engine=svt.CalibrationEngine.ROUGH_MC), "PARAMS5"),
+    (dict(method="lm",
+          model_calibration_type=svt.LogsvModelCalibrationType.PARAMS_WITH_VARSWAP_FIT),
+     "PARAMS5"),
     (dict(method="lm", model_calibration_type=svt.LogsvModelCalibrationType.PARAMS4), "PARAMS5"),
 ])
 def test_unported_calibrations_raise(kw, match):

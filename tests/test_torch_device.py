@@ -6,7 +6,8 @@
 (b) on a PyTorch without CUDA, as here, a call on the default device raises
     instead of running on the CPU: the pricers, the fast implied vol, and
     the calibrations (LogSV SLSQP, LM and Adam; Heston SLSQP and LM; Hawkes
-    SLSQP, LM and the risk-premia fit).
+    SLSQP, LM and the risk-premia fit), the Q_VAR pricer and the densities,
+    the QMC chain MC, the vol paths and the MC calibration.
 """
 import importlib
 import inspect
@@ -111,6 +112,17 @@ def default_device_calls():
                 chain, svt.HawkesJDParams(risk_premia_gamma=0.5)),
         "calibrate_hawkesjd_lm_on_device": lambda: svt.calibrate_hawkesjd_lm_on_device(
             chain, svt.HawkesJDParams()),
+        "LogSVPricer.price_chain(Q_VAR)": lambda: svt.LogSVPricer().price_chain(
+            chain, svt.LOGSV_BTC_PARAMS, variable_type=svt.VariableType.Q_VAR),
+        "logsv_pdfs": lambda: svt.logsv_pdfs(svt.LOGSV_BTC_PARAMS, 0.1, np.linspace(-1, 1, 5)),
+        "LogSVPricer.model_mc_price_chain(qmc)": lambda: svt.LogSVPricer().model_mc_price_chain(
+            chain, svt.LOGSV_BTC_PARAMS, nb_path=256, engine="qmc"),
+        "LogSVPricer.simulate_vol_paths": lambda: svt.LogSVPricer().simulate_vol_paths(
+            svt.LOGSV_BTC_PARAMS, ttm=0.1, nb_path=16),
+        "LogSVPricer.calibrate_model_params_to_chain(MC)":
+            lambda: svt.LogSVPricer().calibrate_model_params_to_chain(
+                chain, svt.LOGSV_BTC_PARAMS, calibration_engine=svt.CalibrationEngine.MC,
+                nb_path=256),
     }
 
 
@@ -130,7 +142,11 @@ def default_device_calls():
                                   "HawkesJDPricer.calibrate_model_params_to_chain(slsqp)",
                                   "HawkesJDPricer.calibrate_model_params_to_chain(lm)",
                                   "HawkesJDPricer.calibrate_risk_premia_gamma_to_chain",
-                                  "calibrate_hawkesjd_lm_on_device"])
+                                  "calibrate_hawkesjd_lm_on_device",
+                                  "LogSVPricer.price_chain(Q_VAR)", "logsv_pdfs",
+                                  "LogSVPricer.model_mc_price_chain(qmc)",
+                                  "LogSVPricer.simulate_vol_paths",
+                                  "LogSVPricer.calibrate_model_params_to_chain(MC)"])
 def test_default_device_call_raises_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("this PyTorch has a CUDA device: the default device runs")

@@ -61,6 +61,15 @@ _, heston_cost = svt.calibrate_heston_lm(two, svt.BTC_HESTON_PARAMS, nb_iters=1,
 _, hawkes_cost = svt.calibrate_hawkesjd_lm_on_device(two, svt.HawkesJDParams(), nb_iters=1,
                                                      year_steps=60, device="cpu")
 assert np.isfinite(heston_cost) and np.isfinite(hawkes_cost), (heston_cost, hawkes_cost)
+logsv = svt.LogSVPricer(device="cpu")
+qv = svt.OptionChain.get_slices_as_chain(svt.get_qv_options_test_chain_data(), ids=["1w"])
+qv_prices = logsv.price_chain(qv, svt.LOGSV_BTC_PARAMS, variable_type=svt.VariableType.Q_VAR)
+pdf = logsv.logsv_pdfs(svt.LOGSV_BTC_PARAMS, 0.1, svt.LOGSV_BTC_PARAMS.get_x_grid(0.1, n=20))
+qmc, _ = logsv.model_mc_price_chain(two, svt.LOGSV_BTC_PARAMS, nb_path=256, engine="qmc")
+backbone = svt.fit_model_vol_backbone_to_varswaps(svt.LOGSV_BTC_PARAMS,
+                                                  chain.get_slice_varswap_strikes())
+assert np.all(np.isfinite(qv_prices[0])) and np.isfinite(pdf).all() and np.isfinite(qmc[0]).all()
+assert np.all(backbone.to_numpy() > 0.0), backbone
 loaded = sorted(m for m, mod in sys.modules.items() if m.split(".")[0] in BLOCKED and mod is not None)
 assert not loaded, loaded
 print("ok", len(prices))
@@ -69,8 +78,10 @@ print("ok", len(prices))
 
 def test_port_imports_and_prices_without_jax_pandas_matplotlib_triton():
     """LogSV, Heston and Hawkes analytic prices, the rough and Hawkes MC's
-    plain kernel versions, and one Heston and one Hawkes LM iteration, in a
-    process that cannot import jax, pandas, matplotlib or triton."""
+    plain kernel versions, one Heston and one Hawkes LM iteration, and the
+    LogSV Q_VAR prices, a density, the QMC chain MC and the varswap
+    backbone fit, in a process that cannot import jax, pandas, matplotlib
+    or triton."""
     out = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, capture_output=True,
                          text=True, timeout=300, env=dict(os.environ, PYTHONPATH=str(REPO)))
     assert out.returncode == 0, out.stderr

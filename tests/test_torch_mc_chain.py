@@ -75,10 +75,13 @@ def test_unknown_engine_and_estimators_raise():
     _, ct = btc_chains()
     _, pt = param_pair(**BTC_PARAMS)
     with pytest.raises(NotImplementedError):
-        svt.LogSVPricer(device="cpu").model_mc_price_chain(ct, pt, engine="qmc", nb_path=256)
+        svt.LogSVPricer(device="cpu").model_mc_price_chain(ct, pt, engine="sobol", nb_path=256)
+    # the kernel draws its normals on the card: no antithetic pairs there
     with pytest.raises(NotImplementedError):
-        svt.LogSVPricer(device="cpu").model_mc_price_chain(ct, pt, nb_path=256, antithetic=True)
+        svt.LogSVPricer(device="cpu").model_mc_price_chain(ct, pt, nb_path=256, engine="cuda",
+                                                           antithetic=True)
+    # pairs and QMC replicates are two exclusive reductions
     with pytest.raises(NotImplementedError):
-        svt.compute_mc_vars_payoff(x0=torch.zeros(4), sigma0=None, qvar0=None, ttm=0.1,
-                                   forward=1.0,
-                                   strikes_ttm=[1.0], optiontypes_ttm=['C'], antithetic=True)
+        svt.compute_mc_vars_payoff(x0=torch.zeros(4), sigma0=None, qvar0=torch.zeros(4),
+                                   ttm=0.1, forward=1.0, strikes_ttm=[1.0],
+                                   optiontypes_ttm=['C'], antithetic=True, nb_replicates=2)
