@@ -46,8 +46,16 @@ and vol densities at the stiff paper parameters, Q_VAR chain MC through
 the logsv_mc kernel (its launch count is the kernels line's ``launches``
 for logsv_mc), the antithetic, QMC and fixed-randoms MC engines on BTC, and
 the MC, QMC and varswap-backbone fits and one rough-MC objective on the
-first two BTC slices.
-Each phase prints one line; any failure raises and exits non-zero.
+first two BTC slices.  Then the chain greeks of LogSV and Heston on BTC
+(price and vol space, gamma and calendar theta, one CUDA graph a program,
+captured against eager bit for bit, GPU against CPU) and the LogSV pathwise
+MC greeks against a fixed-seed difference; the exponential-Euler affine
+solve (one graph a slice) against the CPU and the RK4; Heston QMC,
+antithetic and Q_VAR; and the rough chain through rough_mc with the
+Gaussian rule's 2, 4 and 5 nodes (each instance held against its plain
+version, with its ms), and one 'expm'-drift scan chain against the RK4's.
+Each phase prints one line, and a ``[phase-walls]`` line their walls; any
+failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 it exits 1 and prints no result.
 """
@@ -86,7 +94,7 @@ ROUGH_H, ROUGH_NODES, ROUGH_T = 0.1, 3, 0.43
 HAWKES_MAIN_TTM, HAWKES_THROUGHPUT_TTM, HAWKES_STEPS_PER_YEAR = 0.05, 0.2, 1800
 HAWKES_GAMMA = 0.5
 # warm repeats of the Hawkes calls: an analytic reprice is ~10^5 small launches
-HAWKES_REPEATS = 3
+HAWKES_REPEATS = 1
 # the variant study: dt = 1/360, 91 steps against the plain versions, 360 for the study
 VARIANT_DT, VARIANT_CHECK_STEPS, VARIANT_STEPS = 1.0 / 360.0, 91, 360
 # the bytes of state each path reads and writes once
@@ -99,7 +107,7 @@ PEAK_OPS_PER_S, PEAK_BYTES_PER_S = 67e12, 3.35e12
 CALIB_PARAMS0 = dict(sigma0=0.8, theta=1.0, kappa1=2.21, kappa2=2.18, beta=0.15, volvol=1.85)
 CALIB_LM_ITERS, CALIB_REPEATS = 12, 1
 # warm repeats of each ivols call, captured and uncaptured
-GRAPH_REPEATS = 5
+GRAPH_REPEATS = 3
 # Heston calibration: the JAX test's LM start point (tests/test_heston.py), 16 LM iterations
 HESTON_LM_PARAMS0 = dict(v0=0.8, theta=1.0, kappa=2.0, rho=0.1, volvol=1.5)
 HESTON_LM_ITERS = 16
@@ -109,7 +117,7 @@ HESTON_LM_ITERS = 16
 # first HAWKES_FIT_SLICES BTC slices, the gamma fit at HAWKES_GAMMA_MAXITER iterations (its
 # ftol of 1e-16 is never met, so it runs to maxiter)
 HAWKES_LM_ITERS, HAWKES_LM_YEAR_STEPS, HAWKES_LM_CHECK_ITERS = 16, 720, 2
-HAWKES_FIT_SLICES, HAWKES_GAMMA_MAXITER = 2, 20
+HAWKES_FIT_SLICES, HAWKES_GAMMA_MAXITER = 2, 10
 # LogSV beyond LOG_RETURN: the README parameters on the QV chain; the stiff paper parameters of
 # tests/test_logsv.py's density test; Q_VAR MC at 1440 steps/yr (its Euler gap at 360 steps/yr
 # reaches 4-30% on the 1w slice, at 1440 about 1-2%), held to 4 stderr + 2% + 2e-4
@@ -124,6 +132,13 @@ ENGINE_NB_PATH, QMC_NB_PATH, FIXED_NB_PATH, QMC_REPLICATES = 1 << 18, 1 << 17, 1
 # MC calibration on the first two BTC slices: 100k paths at 360 steps/yr; the rough objective
 # (H = 0.1) GPU against CPU on one block of ROUGH_CALIB_NB_PATH paths
 MC_CALIB_NB_PATH, MC_CALIB_SLICES, ROUGH_CALIB_NB_PATH = 100000, 2, 1 << 14
+# the pathwise MC greeks at the JAX package's default 100,000 paths (360 steps/yr); the rough
+# lifts of the ported rules (N = 2, 4, 5 nodes); the 'expm'-drift scan chain's paths
+MC_GREEKS_NB_PATH, ROUGH_RULE_NODES, EXPM_NB_PATH = 100000, (2, 4, 5), 1 << 16
+# the 'expm' against 'rk4' drift chains at tests/test_rough_logsv.py's step-resolved lift (H 0.3,
+# 2 nodes on [0, 1], 720 steps/yr): at H = 0.1 the top node (~300/yr) leaves both schemes ~10%
+# from the truth and from each other, so there they are not comparable
+EXPM_LIFT, EXPM_STEPS_PER_YEAR = (0.3, 2, 1.0), 720
 
 
 def _check(ok: bool, what: str) -> None:
@@ -308,9 +323,9 @@ def _throughput(name, run_k, run_p, nb_steps):
     """(kernel ms, plain ms, SM clock MHz under the kernel's load) at NB_PATH
     x nb_steps by CUDA events, in turns: plain, kernel, kernel, plain."""
     run_k(), run_p()
-    plain_ms = [_event_ms(run_p, 2)]
+    plain_ms = [_event_ms(run_p, 1)]
     kernel_ms = [_event_ms(run_k, 10), _event_ms(run_k, 10)]
-    plain_ms.append(_event_ms(run_p, 2))
+    plain_ms.append(_event_ms(run_p, 1))
     k_ms, p_ms = statistics.mean(kernel_ms), statistics.mean(plain_ms)
     path_steps = NB_PATH * nb_steps
     print(f"[throughput] {name} {NB_PATH} paths x {nb_steps} steps: kernel {k_ms:.3f} ms "
@@ -418,23 +433,63 @@ def _calibration_phase(svt, gpu, chain) -> None:
 
 def _device_busy(fn):
     """(device kernels, host launch calls, device busy ms, profiled wall ms)
-    of one warm call of ``fn`` by torch.profiler: busy is the sum of the
+    of one warm call of ``fn`` (:func:`_profiled` after one warm-up call)."""
+    fn()
+    return _profiled(fn)[1]
+
+
+def _profiled(fn):
+    """(output, (device kernels, host launch calls, device busy ms, profiled
+    wall ms)) of one call of ``fn`` by torch.profiler: busy is the sum of the
     kernels' durations, the wall the host time around the call and its
-    synchronise."""
+    synchronise.  It records the CUDA activity only (the kernels and the
+    runtime's launch calls): on calls of 10^5 kernels the host-op events of
+    a full profile take minutes to collect."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.events()
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = 1e-3 * sum(e.time_range.elapsed_us() for e in kernels)
     launches = sum(1 for e in events if e.name.startswith(("cudaLaunchKernel", "cudaGraphLaunch")))
-    return len(kernels), launches, busy_ms, wall_ms
+    return out, (len(kernels), launches, busy_ms, wall_ms)
+
+
+def _captured_then_eager(graphs, fn, profile_captured=True, profile_eager=True):
+    """(output, capture s, warm captured s, captured profile, eager profile)
+    of a call through CUDA graphs: the first call captures; one warm captured
+    call is timed and (``profile_captured``; else the profile is None) one
+    more profiled, then one eager call, profiled or (with ``profile_eager``
+    False: its profile is then (None, None, None, wall)) timed; each must
+    return the first output bit for bit."""
+    t0 = time.perf_counter()
+    first = fn()
+    capture_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    captured_s = time.perf_counter() - t0
+    _check(_same(out, first), "a captured call differs from the first call")
+    captured = None
+    if profile_captured:
+        out, captured = _profiled(fn)
+        _check(_same(out, first), "a profiled captured call differs from the first call")
+    with graphs.eager():
+        if profile_eager:
+            out, eager = _profiled(fn)
+        else:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            eager = (None, None, None, 1e3 * (time.perf_counter() - t0))
+    _check(_same(out, first), "the eager call differs from the captured call")
+    return first, capture_s, captured_s, captured, eager
 
 
 def _busy_line(counts) -> str:
@@ -912,6 +967,301 @@ def _mc_calibration_phase(svt, chain) -> None:
           f"{out[DEVICE + '_s']:.3f} s, CPU {out['cpu_s']:.3f} s | {smi}", flush=True)
 
 
+def _greeks_close(gpu_out, cpu_out, chain, what) -> tuple:
+    """GPU against CPU: prices to 1e-10 x forward, every greek panel to 1e-8
+    relative (+ 1e-12 of the panel's largest entry); returns the largest
+    price gap / forward and the largest relative greek gap."""
+    price_gap, greek_gap = 0.0, 0.0
+    for key in gpu_out:
+        for g, c, fwd in zip(gpu_out[key], cpu_out[key], chain.forwards):
+            _check(np.all(np.isfinite(g)), f"{what} {key} not finite: {g}")
+            if key == "price":
+                _check(np.max(np.abs(g - c)) <= 1e-10 * fwd, f"{what} GPU prices differ from CPU")
+                price_gap = max(price_gap, float(np.max(np.abs(g - c)) / fwd))
+                continue
+            scale = 1e-12 * float(np.max(np.abs(c)))
+            _check(bool(np.all(np.abs(g - c) <= 1e-8 * np.abs(c) + scale)),
+                   f"{what} GPU {key} differs from CPU: {g} vs {c}")
+            greek_gap = max(greek_gap, float(np.max(np.abs(g - c) / (np.abs(c) + scale + 1e-300))))
+    return price_gap, greek_gap
+
+
+def _greeks_phase(svt, graphs, chain) -> None:
+    """LogSV and Heston chain greeks on the BTC chain at full width (1000-point
+    Phi grid, 240 RK4 steps/yr for LogSV): delta, gamma, vega, calendar theta
+    and every parameter greek, in price and in vol space; each program one
+    CUDA graph, captured against eager bit for bit, the GPU against the CPU;
+    then the pathwise MC delta and vega at 100,000 paths and 360 steps/yr
+    against a fixed-seed central difference on the card."""
+    smi = _smi_name_and_power()
+    models = {
+        "LogSV": (svt.LogSVPricer, svt.LOGSV_BTC_PARAMS,
+                  ("delta", "gamma", "vega", "theta_calendar", "theta", "kappa1", "kappa2",
+                   "beta", "volvol")),
+        "Heston": (svt.HestonPricer, svt.BTC_HESTON_PARAMS,
+                   ("delta", "gamma", "vega", "theta_calendar", "theta", "kappa", "rho",
+                    "volvol"))}
+    for model, (cls, params, names) in models.items():
+        gpu, cpu = cls(device=DEVICE), cls(device="cpu")
+        for in_vols in (False, True):
+            flat = lambda d: [a for k in sorted(d) for a in d[k]]
+            holder = {}
+
+            def call():
+                holder["out"] = gpu.compute_chain_greeks(chain, params, greeks=names,
+                                                         in_vols=in_vols)
+                return flat(holder["out"])
+
+            # a profile of 10^5 kernels costs ~0.1 ms an event to collect: the captured
+            # calls are profiled in price space only, the eager ones for Heston's (~7k kernels)
+            profile_eager = model == "Heston" and not in_vols
+            before = graphs.REPLAYS["greeks"]
+            _, capture_s, captured_s, captured, eager = _captured_then_eager(
+                graphs, call, profile_captured=not in_vols, profile_eager=profile_eager)
+            out = holder["out"]
+            replays = graphs.REPLAYS["greeks"] - before
+            calls = 3 if not in_vols else 2
+            _check(replays == 3 * calls, f"{model} greeks: {replays} graph replays (3 programs, "
+                                         f"{calls} captured calls)")
+            t0 = time.perf_counter()
+            ref = cpu.compute_chain_greeks(chain, params, greeks=names, in_vols=in_vols)
+            cpu_s = time.perf_counter() - t0
+            price_gap, greek_gap = _greeks_close(out, ref, chain, f"{model} greeks")
+            space = "vol" if in_vols else "price"
+            print(f"[greeks] {model} {space} space, {len(names)} greeks on the BTC chain "
+                  f"({len(chain.ttms)} slices, 1000-point Phi grid): GPU vs CPU max |dprice|/fwd "
+                  f"{price_gap:.2e}, greeks max rel {greek_gap:.2e} (CPU {cpu_s:.2f} s); "
+                  f"captured equal bit for bit to eager ({replays} graph replays, 3 programs: "
+                  f"the greeks and calendar theta's two shifted maturities); capture (first "
+                  f"call) {capture_s:.3f} s; warm captured {1e3 * captured_s:.1f} ms, eager "
+                  f"{eager[3]:.1f} ms{' (profiled)' if profile_eager else ''}; captured: "
+                  f"{_busy_line(captured) if captured else 'not profiled'}; eager: "
+                  f"{_busy_line(eager) if profile_eager else 'not profiled'} | {smi}", flush=True)
+    # pathwise MC greeks on the forward-normalised chain (the units of tests/test_greeks.py)
+    norm = svt.OptionChain.to_forward_normalised_strikes(chain)
+    P = svt.LOGSV_BTC_PARAMS
+    mc_kw = dict(nb_path=MC_GREEKS_NB_PATH, nb_steps_per_year=MC_STEPS_PER_YEAR, seed=7,
+                 device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mc = svt.logsv_mc_chain_greeks(norm, P, greeks=("delta", "vega"), **mc_kw)
+    mc_s = time.perf_counter() - t0
+    eps = 1e-4
+
+    def prices(params, mult=1.0):
+        c = svt.OptionChain.to_forward_normalised_strikes(chain)
+        c.forwards = c.forwards * mult
+        return svt.logsv_mc_chain_greeks(c, params, greeks=(), **mc_kw)["price"]
+
+    up, dn = prices(P, 1 + eps), prices(P, 1 - eps)
+    bump = lambda d: svt.LogSvParams(**{**P.to_dict(), "sigma0": P.sigma0 + d})
+    vup, vdn = prices(bump(eps)), prices(bump(-eps))
+    worst = 0.0
+    for i in range(len(chain.ttms)):
+        for key, fd in (("delta", (up[i] - dn[i]) / (2 * eps)), ("vega", (vup[i] - vdn[i]) / (2 * eps))):
+            _check(np.all(np.isfinite(mc[key][i])), f"MC {key} not finite")
+            ratio = np.abs(mc[key][i] - fd) / (5e-3 * np.abs(fd) + 5e-4)
+            _check(bool(np.all(ratio < 1.0)), f"MC pathwise {key} {mc[key][i]} vs fixed-seed FD {fd}")
+            worst = max(worst, float(np.max(ratio)))
+    print(f"[greeks] LogSV pathwise MC delta and vega, {MC_GREEKS_NB_PATH} paths at "
+          f"{MC_STEPS_PER_YEAR} steps/yr (eager float64 Euler, forward-normalised chain): max "
+          f"|pathwise - fixed-seed central FD| / (5e-3 |FD| + 5e-4) {worst:.3f}; wall "
+          f"{mc_s:.3f} s (both greeks, one call) | {smi}", flush=True)
+
+
+def _analytic_ode_phase(svt, graphs, chain) -> None:
+    """the exponential-Euler affine solve on the BTC chain's full Phi grid:
+    the first slice GPU against CPU, the solve chained over the chain's
+    maturities against the RK4's, steps, kernels, captured and eager walls."""
+    from stochvolmodels_torch.models.logsv import affine as afe
+    from stochvolmodels_torch.ops import mgf
+
+    smi = _smi_name_and_power()
+    P = svt.LOGSV_BTC_PARAMS
+    vs = svt.set_vol_scaler(sigma0=P.sigma0, ttm=np.min(chain.ttms))
+    ode = dict(theta=P.theta, kappa1=P.kappa1, kappa2=P.kappa2, beta=P.beta, volvol=P.volvol)
+
+    def first_slice(device, analytic=True):
+        phi = mgf.get_phi_grid(vol_scaler=vs, device=device)
+        zero = torch.zeros_like(phi)
+        return afe.compute_logsv_a_mgf_grid(ttm=float(chain.ttms[0]), phi_grid=phi,
+                                            psi_grid=zero, theta_grid=zero, sigma0=P.sigma0,
+                                            is_analytic=analytic, vol_scaler=vs, **ode)[1]
+
+    gpu = first_slice(DEVICE).cpu().numpy()
+    cpu = first_slice("cpu").numpy()
+    gap = float(np.max(np.abs(gpu - cpu) / np.maximum(1.0, np.abs(cpu))))
+    _check(np.all(np.isfinite(gpu)) and gap <= 1e-10, f"analytic ODE GPU vs CPU {gap}")
+
+    def chained(analytic):
+        phi = mgf.get_phi_grid(vol_scaler=vs, device=DEVICE)
+        zero = torch.zeros_like(phi)
+        a_t, ttm0, out = None, 0.0, []
+        for ttm in chain.ttms:
+            a_t, log_mgf = afe.compute_logsv_a_mgf_grid(
+                ttm=float(ttm) - ttm0, phi_grid=phi, psi_grid=zero, theta_grid=zero,
+                sigma0=P.sigma0, a_t0=a_t, is_analytic=analytic, vol_scaler=vs, **ode)
+            out.append(log_mgf.cpu().numpy())
+            ttm0 = float(ttm)
+        return out
+
+    graphs.REPLAYS.clear()
+    ana, capture_s, captured_s, eager_s = _captured_and_eager(graphs, lambda: chained(True),
+                                                              repeats=3)
+    replays = graphs.REPLAYS["logsv_analytic_ode"]
+    _check(replays == 4 * len(chain.ttms), f"analytic ODE: {replays} graph replays")
+    rk4 = chained(False)
+    # the scheme's O(dt^2) error grows with |phi|: held relative to max(1, |log MGF|) (the
+    # JAX test's 2e-4 is absolute on |Im phi| <= 40 at one ttm 0.25, where |log MGF| <= ~10)
+    chain_gap = max(float(np.max(np.abs(a - r) / np.maximum(1.0, np.abs(r))))
+                    for a, r in zip(ana, rk4))
+    mgf_gap = max(float(np.max(np.abs(np.exp(a) - np.exp(r)))) for a, r in zip(ana, rk4))
+    _check(chain_gap <= 2e-4, f"chained analytic MGF vs RK4 {chain_gap}")
+    p_max = afe.phi_grid_p_max(vs)
+    steps, ttm0 = [], 0.0
+    for ttm in chain.ttms:
+        steps.append(afe.analytic_nb_steps(float(ttm) - ttm0, p_max))
+        ttm0 = float(ttm)
+    captured = _profiled(lambda: chained(True))[1]
+    with graphs.eager():
+        eager = _profiled(lambda: chained(True))[1]
+    print(f"[analytic-ode] exponential-Euler solve on the 1000-point Phi grid (p_max {p_max:.4f} "
+          f"from the grid's constants, 10 fixed-point iterations a step): first "
+          f"slice GPU vs CPU max rel {gap:.2e} (limit 1e-10); chained over {len(chain.ttms)} "
+          f"slices, max |log MGF - RK4's| / max(1, |log MGF|) {chain_gap:.2e} (limit 2e-4), max |MGF - "
+          f"RK4's| {mgf_gap:.2e}; steps per slice {steps}; "
+          f"captured equal bit for bit to eager (one graph a slice, {replays} replays); capture "
+          f"(first call) {capture_s:.3f} s; warm captured {1e3 * captured_s:.1f} ms, eager "
+          f"{1e3 * eager_s:.1f} ms (median of 3); captured: {_busy_line(captured)}; eager: "
+          f"{_busy_line(eager)} | {smi}", flush=True)
+
+
+def _heston_extras_phase(svt, graphs, chain) -> None:
+    """Heston QMC (2^17 paths, 8 replicates) and antithetic chains on BTC within
+    the band of the analytic prices, with stderrs, QMC's launches per slice;
+    analytic Q_VAR on the QV chain, GPU against CPU."""
+    smi = _smi_name_and_power()
+    H = svt.BTC_HESTON_PARAMS
+    gpu, cpu = svt.HestonPricer(device=DEVICE), svt.HestonPricer(device="cpu")
+    analytic = gpu.price_chain(chain, H)
+    runs = {"scan": dict(engine="scan", nb_path=ENGINE_NB_PATH),
+            "antithetic scan": dict(engine="scan", nb_path=ENGINE_NB_PATH, antithetic=True),
+            f"qmc ({QMC_REPLICATES} replicates)": dict(engine="qmc", nb_path=QMC_NB_PATH,
+                                                       qmc_replicates=QMC_REPLICATES)}
+    stderr = {}
+    for name, kw in runs.items():
+        graphs.REPLAYS.clear()
+        t0 = time.perf_counter()
+        mc, std = gpu.model_mc_price_chain(chain, H, seed=24, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        worst = _mc_band(chain, analytic, mc, std, f"Heston {name}")
+        stderr[name] = float(np.mean([np.mean(s / f) for s, f in zip(std, chain.forwards)]))
+        if kw["engine"] == "qmc":
+            _check(graphs.REPLAYS["heston_qmc"] == len(chain.ttms),
+                   f"Heston QMC: {graphs.REPLAYS['heston_qmc']} graph replays")
+        print(f"[heston-extras] {name}, {kw['nb_path']} paths at 360 steps/yr: max |MC - "
+              f"analytic| / band {worst:.3f}; mean stderr / fwd {stderr[name]:.3e} (plain scan "
+              f"{stderr['scan']:.3e}); first call {wall:.3f} s | {smi}", flush=True)
+    qmc_call = lambda: gpu.model_mc_price_chain(chain, H, seed=24, **runs[
+        f"qmc ({QMC_REPLICATES} replicates)"])
+    captured = _profiled(qmc_call)[1]
+    with graphs.eager():
+        eager = _profiled(qmc_call)[1]
+    n = len(chain.ttms)
+    print(f"[heston-extras] QMC chain call, per slice ({n} slices): host launch calls captured "
+          f"{captured[1] / n:.0f}, eager {eager[1] / n:.0f}; captured: {_busy_line(captured)}; "
+          f"eager: {_busy_line(eager)} | {smi}", flush=True)
+    qv = svt.get_qv_options_test_chain_data()
+    qvar = svt.VariableType.Q_VAR
+    prices = gpu.price_chain(qv, H, variable_type=qvar)
+    prices_cpu = cpu.price_chain(qv, H, variable_type=qvar)
+    gap = 0.0
+    for pg, pc, fwd in zip(prices, prices_cpu, qv.forwards):
+        _check(np.all(np.isfinite(pg)) and np.all(pg > 0.0), f"Heston Q_VAR prices not sane: {pg}")
+        _check(np.max(np.abs(pg - pc)) <= 1e-10 * fwd, "Heston Q_VAR GPU prices differ from CPU")
+        gap = max(gap, float(np.max(np.abs(pg - pc)) / fwd))
+    q_ms = _warm_ms(lambda: gpu.price_chain(qv, H, variable_type=qvar), repeats=3)
+    print(f"[heston-extras] Q_VAR on the QV chain ({len(qv.ttms)} x {len(qv.strikes_ttms[0])} "
+          f"calls, 40000-point Psi grid, closed form): GPU vs CPU max |dprice|/fwd {gap:.2e}; "
+          f"warm price_chain {q_ms:.1f} ms | {smi}", flush=True)
+
+
+def _rough_rules_phase(svt, cuda_mc, mc_variants, chain) -> dict:
+    """the rough chain through rough_mc with Gaussian-rule lifts of N = 2, 4
+    and 5 nodes (the counts the ported rules give): each chain driven with
+    the launch counts set to 0 just before it and read just after, each
+    instance held against its plain version at 2^20 x 91, its ms and the
+    plain version's at 2^20 x 361; then one 'expm'-drift scan chain against
+    the 'rk4' one.  Returns {N: (kernel ms, plain ms, max abs err)}."""
+    from stochvolmodels_torch.utils.funcs import set_time_grid
+
+    smi = _smi_name_and_power()
+    P = svt.LOGSV_BTC_PARAMS
+    gpu = svt.LogSVPricer(device=DEVICE)
+    max_ttm = float(np.max(chain.ttms))
+    vartheta = float(np.hypot(P.beta, P.volvol))
+    main_steps = set_time_grid(MAIN_TTM, MC_STEPS_PER_YEAR)[0]
+    tp_steps = set_time_grid(THROUGHPUT_TTM, MC_STEPS_PER_YEAR)[0]
+    out, launched = {}, {}
+    for n in ROUGH_RULE_NODES:
+        nodes, weights = svt.gaussian_rule(ROUGH_H, n, max_ttm)
+        _check(len(nodes) == n and np.all(weights > 0.0), f"gaussian_rule gave {nodes}, {weights}")
+        params = svt.LogSvParams(**{**P.to_dict(), "H": ROUGH_H, "nodes": nodes, "weights": weights})
+        _reset_counts(cuda_mc, mc_variants)
+        prices, _ = gpu.model_mc_price_chain(chain, params, nb_path=NB_PATH, use_rough_mc=True,
+                                             engine="cuda", seed=24)
+        launched[n] = _counts(cuda_mc, mc_variants)["rough_mc"]
+        _check(launched[n] == len(chain.ttms), f"rough chain N={n}: {launched[n]} launches")
+        ivols = chain.compute_model_ivols_from_chain_data(model_prices=prices, device=DEVICE)
+        for iv in ivols:
+            ok = np.isfinite(iv)
+            _check(np.mean(ok) > 0.8 and np.all((iv[ok] > 0.3) & (iv[ok] < 2.5)),
+                   f"rough N={n} ivols not sane: {iv}")
+        kw = dict(ttm=MAIN_TTM, sigma0=P.sigma0, theta=P.theta, kappa1=P.kappa1, kappa2=P.kappa2,
+                  rho=P.beta / vartheta, volvol=vartheta, nodes=nodes, weights=weights, device=DEVICE)
+        err = _vs_plain(f"rough_mc (N={n}, Gaussian rule)", main_steps,
+                        cuda_mc.simulate_rough_terminal_cuda(7, NB_PATH, **kw),
+                        cuda_mc.simulate_rough_terminal_torch(7, NB_PATH, **kw),
+                        ("x", "vw", "y"), atol=1e-4)
+        tp = dict(kw, ttm=THROUGHPUT_TTM)
+        run_k = lambda: cuda_mc.simulate_rough_terminal_cuda(7, NB_PATH, **tp)
+        run_p = lambda: cuda_mc.simulate_rough_terminal_torch(7, NB_PATH, **tp)
+        run_k()
+        k_ms = statistics.mean([_event_ms(run_k, 10), _event_ms(run_k, 10)])
+        p_ms = _event_ms(run_p, 1)
+        out[n] = (k_ms, p_ms, err)
+    _reset_counts(cuda_mc, mc_variants)
+    print(f"[rough-rules] rough chain through rough_mc at N = {list(ROUGH_RULE_NODES)} "
+          f"(gaussian_rule, H = {ROUGH_H}), {NB_PATH} paths: launches per chain call "
+          f"{launched}; kernel / plain ms at {NB_PATH} x {tp_steps} steps "
+          + ", ".join(f"N={n} {k:.3f} / {p:.1f} ({NB_PATH * tp_steps / k * 1e3:.4e} path-steps/s)"
+                      for n, (k, p, _) in out.items()) + f" | {smi}", flush=True)
+    nodes, weights = svt.european_rule(*EXPM_LIFT)
+    scan_kw = dict(ttms=chain.ttms, forwards=chain.forwards, discfactors=chain.discfactors,
+                   strikes_ttms=chain.strikes_ttms, optiontypes_ttms=chain.optiontypes_ttms,
+                   sigma0=P.sigma0, theta=P.theta, kappa1=P.kappa1, kappa2=P.kappa2, beta=P.beta,
+                   volvol=P.volvol, nodes=nodes, weights=weights, nb_path=EXPM_NB_PATH, seed=11,
+                   nb_steps_per_year=EXPM_STEPS_PER_YEAR, device=DEVICE)
+    walls, res = {}, {}
+    for scheme in ("rk4", "expm"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[scheme] = svt.rough_logsv_mc_chain_pricer(drift_scheme=scheme, **scan_kw)
+        walls[scheme] = time.perf_counter() - t0
+    worst = 0.0
+    for a, b, sa, sb in zip(res["rk4"][0], res["expm"][0], res["rk4"][1], res["expm"][1]):
+        _check(np.all(np.isfinite(b)), "expm chain not finite")
+        ratio = np.abs(a - b) / (4.0 * np.hypot(sa, sb))
+        _check(bool(np.all(ratio < 1.0)), f"expm chain {b} vs rk4 chain {a}")
+        worst = max(worst, float(np.max(ratio)))
+    print(f"[rough-rules] 'expm' against 'rk4' drift, scan engine (float64 eager), "
+          f"european_rule{EXPM_LIFT} at {EXPM_STEPS_PER_YEAR} steps/yr, {EXPM_NB_PATH} paths, "
+          f"same seed: max |dprice| / (4 stderr) {worst:.3f}; walls rk4 "
+          f"{walls['rk4']:.2f} s, expm {walls['expm']:.2f} s | {smi}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a GPU",
@@ -922,6 +1272,7 @@ def main() -> int:
     from stochvolmodels_torch.utils.funcs import set_time_grid
 
     # 1. device
+    t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     smi = _smi_name_and_power()
     print(f"[device] {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
@@ -1280,21 +1631,38 @@ def main() -> int:
               f"the peak); SASS step loop {total} instructions, {common} on its common path, per "
               f"{steps_per_loop[name]} step(s); issue floor {floor:.4f} ms at {clock} MHz "
               f"({floor / times[name][0]:.1%} of the kernel time)", flush=True)
+    walls = {"serving paths, kernels and throughput": time.perf_counter() - t_start}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        return out
+
     # 11.-12. calibration and the CUDA graphs of the launch-bound calls
-    _calibration_phase(svt, gpu, chain)
-    _graph_phase(svt, chain, gpu, hgpu, kgpu, P, H, HP)
+    timed("calibration", _calibration_phase, svt, gpu, chain)
+    timed("graphs", _graph_phase, svt, chain, gpu, hgpu, kgpu, P, H, HP)
     # 13.-15. Heston and Hawkes calibration, the Hawkes reprice as one graph
-    _heston_calibration_phase(svt, hgpu, chain)
-    _hawkes_graph_phase(svt, kgpu, chain)
-    _hawkes_calibration_phase(svt, kgpu, chain)
+    timed("heston-calibration", _heston_calibration_phase, svt, hgpu, chain)
+    timed("hawkes-graphs", _hawkes_graph_phase, svt, kgpu, chain)
+    timed("hawkes-calibration", _hawkes_calibration_phase, svt, kgpu, chain)
     # 16.-20. LogSV beyond LOG_RETURN: Q_VAR, densities, Q_VAR MC through logsv_mc, the MC
     # engines and the MC calibration
     from stochvolmodels_torch.ops import graphs
-    _qvar_phase(svt, graphs)
-    _pdfs_phase(svt, graphs)
-    err["logsv_mc"] = max(err["logsv_mc"], _qvar_mc_phase(svt, cuda_mc, mc_variants))
-    _mc_engines_phase(svt, graphs, chain)
-    _mc_calibration_phase(svt, chain)
+    timed("qvar", _qvar_phase, svt, graphs)
+    timed("pdfs", _pdfs_phase, svt, graphs)
+    err["logsv_mc"] = max(err["logsv_mc"], timed("qvar-mc", _qvar_mc_phase, svt, cuda_mc,
+                                                 mc_variants))
+    timed("mc-engines", _mc_engines_phase, svt, graphs, chain)
+    timed("mc-calibration", _mc_calibration_phase, svt, chain)
+    # 21.-24. greeks, the exponential-Euler solve, the Heston extras and the rough rules
+    timed("greeks", _greeks_phase, svt, graphs, chain)
+    timed("analytic-ode", _analytic_ode_phase, svt, graphs, chain)
+    timed("heston-extras", _heston_extras_phase, svt, graphs, chain)
+    rough_rules = timed("rough-rules", _rough_rules_phase, svt, cuda_mc, mc_variants, chain)
+    err["rough_mc"] = max([err["rough_mc"]] + [e for _, _, e in rough_rules.values()])
+    print("[phase-walls] s: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+          + f"; total {time.perf_counter() - t_start:.1f}", flush=True)
 
     replaces = {name: f"stochvolmodels_tpu/ops/pallas_mc.py:{line}" for name, line in
                 (("logsv_mc", 142), ("heston_mc", 282), ("rough_mc", 386), ("hawkes_mc", 588))}

@@ -10,11 +10,13 @@ vol, vol moments and the varswap backbone fit, BSM implied vols and greeks,
 Monte Carlo (plain, antithetic, randomized QMC, on fixed randoms), the rough
 lift's Monte Carlo, and calibration to a chain by SLSQP on the analytic, MC
 or rough-MC engine, Levenberg-Marquardt as one CUDA graph, or Adam), for Heston (closed-form Fourier
-prices, Monte Carlo, and calibration by SLSQP with the Feller constraint or by
+prices and options on quadratic variance, Monte Carlo (plain, antithetic,
+randomized QMC), and calibration by SLSQP with the Feller constraint or by
 Levenberg-Marquardt) and for the Hawkes jump-diffusion model (Riccati Fourier
 prices as one CUDA graph a reprice, the risk-premia pricer, thinning Monte
 Carlo, and calibration by SLSQP, by Levenberg-Marquardt, and of the risk
-premia).  Every Monte-Carlo path loop runs in a hand-written
+premia); the chain greeks of LogSV (analytic and pathwise MC) and Heston by
+forward-mode AD, in price or implied-vol space.  Every Monte-Carlo path loop runs in a hand-written
 CUDA kernel on NVIDIA Hopper.  Every entry point runs on the card unless the
 caller asks for the CPU (``LogSVPricer(device="cpu")``); without a card, a call
 on the default device raises.
@@ -57,7 +59,13 @@ from stochvolmodels_torch.models.heston import (  # noqa: F401
     heston_chain_price_grid,
     heston_mc_chain_pricer,
     simulate_heston_terminal,
+    simulate_heston_terminal_qmc,
     v0_implied,
+)
+from stochvolmodels_torch.models.greeks import (  # noqa: F401
+    heston_chain_greeks,
+    logsv_chain_greeks,
+    logsv_mc_chain_greeks,
 )
 from stochvolmodels_torch.models.logsv.affine import (  # noqa: F401
     ExpansionOrder,
@@ -65,7 +73,12 @@ from stochvolmodels_torch.models.logsv.affine import (  # noqa: F401
     func_a_ode_quadratic_terms,
     get_expansion_n,
     get_init_conditions_a,
+    phi_grid_p_max,
     solve_a_ode_grid,
+    solve_analytic_ode_for_a,
+    solve_analytic_ode_grid,
+    solve_analytic_ode_grid_phi,
+    solve_ode_for_a,
 )
 from stochvolmodels_torch.models.logsv.fast_calibration import (  # noqa: F401
     calibrate_logsv_lm_on_device,
@@ -82,6 +95,7 @@ from stochvolmodels_torch.models.logsv.pricer import (  # noqa: F401
     get_randoms_for_chain_valuation,
     get_randoms_for_rough_vol_chain_valuation,
     logsv_chain_price_grid,
+    logsv_chain_pricer,
     logsv_mc_chain_pricer,
     logsv_mc_chain_pricer_fixed_randoms,
     logsv_pdfs,
@@ -102,8 +116,24 @@ from stochvolmodels_torch.models.logsv.vol_moments import (  # noqa: F401
     fit_model_vol_backbone_to_varswaps,
 )
 from stochvolmodels_torch.models.model_pricer import ModelParams, ModelPricer  # noqa: F401
-from stochvolmodels_torch.models.rough.kernel import european_rule  # noqa: F401
+from stochvolmodels_torch.models.rough.kernel import (  # noqa: F401
+    abi_jaber_el_euch_rule,
+    ak_geometric_rule,
+    european_rule,
+    gaussian_rule,
+    harms_rule,
+    kernel_frac,
+    kernel_l1_relative_error,
+    kernel_l2_relative_error,
+    kernel_rheston,
+    l1_rule,
+    mittag_leffler,
+    optimized_l2_rule,
+    quadrature_rule,
+)
 from stochvolmodels_torch.models.rough.simulation import (  # noqa: F401
+    drift_ode_expm,
+    drift_ode_rk4,
     log_spot_full_combined,
     log_spot_full_combined_fixed,
     rough_logsv_mc_chain_pricer,
@@ -159,10 +189,13 @@ from stochvolmodels_torch.ops.payoffs import compute_mc_vars_payoff, mc_vars_pay
 from stochvolmodels_torch.ops.random import antithetic_step_normals, generator_from_seed  # noqa: F401
 from stochvolmodels_torch.utils.funcs import (  # noqa: F401
     SeriesLike,
+    compute_histogram_data,
     find_nearest,
     npad,
+    set_seed,
     set_time_grid,
     timer,
     to_flat_np_array,
     unpad,
+    update_kwargs,
 )

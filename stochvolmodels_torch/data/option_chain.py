@@ -39,6 +39,18 @@ class ChainGrid:
     def device(self) -> torch.device:
         return self.strikes.device
 
+    @property
+    def n_ttms(self) -> int:
+        return self.ttms.shape[0]
+
+    @property
+    def max_strikes(self) -> int:
+        return self.strikes.shape[1]
+
+    def masked(self, panel: torch.Tensor, fill: float = float("nan")) -> torch.Tensor:
+        """the (n_ttm, max_strikes) result panel with ``fill`` on padded slots."""
+        return torch.where(self.mask, panel, fill)
+
     def to(self, device) -> "ChainGrid":
         """the same grid with every tensor on ``device``."""
         return ChainGrid(ttms=self.ttms.to(device), forwards=self.forwards.to(device),
@@ -139,6 +151,36 @@ class OptionChain:
                    ids=np.array([id]) if id is not None else np.array([f"{ttm:0.2f}"]))
 
     @classmethod
+    def get_uniform_chain(cls,
+                          ttms: np.ndarray = np.array([0.083, 0.25]),
+                          ids: np.ndarray = np.array(['1m', '3m']),
+                          forwards: np.ndarray = np.array([1.0, 1.0]),
+                          strikes: np.ndarray = np.linspace(0.9, 1.1, 3),
+                          flat_vol: float = 0.2
+                          ) -> "OptionChain":
+        """synthetic chain: the same strikes at every maturity, flat bid and
+        ask vols, calls at and above the forward and puts below."""
+        return cls(ttms=ttms, ids=ids, forwards=forwards,
+                   strikes_ttms=[strikes for _ in ttms],
+                   bid_ivs=[flat_vol * np.ones_like(strikes) for _ in ttms],
+                   ask_ivs=[flat_vol * np.ones_like(strikes) for _ in ttms],
+                   optiontypes_ttms=[np.where(strikes >= forward, 'C', 'P')
+                                     for forward in forwards])
+
+    @classmethod
+    def to_uniform_strikes(cls, obj: "OptionChain", num_strikes: int = 21) -> "OptionChain":
+        """the chain re-gridded to ``num_strikes`` uniform strikes between each
+        slice's first and last, calls at and above the forward; no quotes."""
+        new_strikes_ttms, new_optiontypes_ttms = [], []
+        for strikes_ttm, forward in zip(obj.strikes_ttms, obj.forwards):
+            new_strikes = np.linspace(strikes_ttm[0], strikes_ttm[-1], num_strikes)
+            new_strikes_ttms.append(new_strikes)
+            new_optiontypes_ttms.append(np.where(new_strikes >= forward, 'C', 'P'))
+        return cls(ttms=obj.ttms, forwards=obj.forwards, strikes_ttms=new_strikes_ttms,
+                   optiontypes_ttms=new_optiontypes_ttms, discfactors=obj.discfactors,
+                   ticker=obj.ticker, ids=obj.ids, bid_ivs=None, ask_ivs=None)
+
+    @classmethod
     def to_forward_normalised_strikes(cls, obj: "OptionChain") -> "OptionChain":
         """the chain with strikes divided by their forwards and unit forwards;
         the old forwards are kept as ``forwards0``."""
@@ -161,6 +203,22 @@ class OptionChain:
                    bid_ivs=pick(option_chain.bid_ivs), ask_ivs=pick(option_chain.ask_ivs),
                    bid_prices=pick(option_chain.bid_prices),
                    ask_prices=pick(option_chain.ask_prices))
+
+    def get_slice(self, id: str) -> OptionSlice:
+        """the :class:`OptionSlice` with the given id."""
+        idx = list(self.ids).index(id)
+        g = lambda seq: None if seq is None else seq[idx]
+        return OptionSlice(id=self.ids[idx], ttm=self.ttms[idx], forward=self.forwards[idx],
+                           strikes=self.strikes_ttms[idx], optiontypes=self.optiontypes_ttms[idx],
+                           discfactor=self.discfactors[idx], bid_ivs=g(self.bid_ivs),
+                           ask_ivs=g(self.ask_ivs), bid_prices=g(self.bid_prices),
+                           ask_prices=g(self.ask_prices))
+
+    def print(self) -> None:
+        """print the chain's maturities, forwards, strikes, types, ids and vols."""
+        for k in ('ttms', 'forwards', 'strikes_ttms', 'optiontypes_ttms', 'ids',
+                  'bid_ivs', 'ask_ivs'):
+            print(f"{k}:\n{getattr(self, k)}")
 
     def get_mid_vols(self) -> Optional[List[np.ndarray]]:
         """per-slice mid implied vols, the average of bid and ask (None
@@ -187,6 +245,28 @@ class OptionChain:
                                              strike=host(strikes), vol=host(vols)).numpy()
                 for ttm, fwd, strikes, vols in zip(ttms, self.forwards, self.strikes_ttms,
                                                    self.get_mid_vols())]
+
+    def get_chain_deltas(self) -> List[np.ndarray]:
+        """BSM deltas per slice at the mid vols (undiscounted), numpy in and
+        out: the port's delta runs on host tensors."""
+        host = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64))
+        return [bsm.compute_bsm_vanilla_delta(ttm=host(ttm), forward=host(fwd),
+                                              strike=host(strikes), vol=host(vols),
+                                              optiontype=types).numpy()
+                for ttm, fwd, strikes, types, vols in zip(
+                    self.ttms, self.forwards, self.strikes_ttms, self.optiontypes_ttms,
+                    self.get_mid_vols())]
+
+    def get_chain_skews(self, delta: float = 0.25) -> np.ndarray:
+        """skew per slice: (vol at -delta - vol at +delta) / vol at 0.5,
+        the vols interpolated against the BSM deltas."""
+        skews = np.zeros(len(self.ttms))
+        for idx, (deltas, vols) in enumerate(zip(self.get_chain_deltas(), self.get_mid_vols())):
+            dput = np.interp(x=-delta, xp=deltas, fp=vols)
+            d50 = np.interp(x=0.5, xp=deltas, fp=vols)
+            dcall = np.interp(x=delta, xp=deltas, fp=vols)
+            skews[idx] = (dput - dcall) / d50
+        return skews
 
     def get_chain_atm_vols(self) -> np.ndarray:
         """ATM vol per slice: the mid vols interpolated to the forward."""

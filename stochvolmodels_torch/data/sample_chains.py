@@ -1,9 +1,9 @@
 """
 Bundled market-data snapshots.
 
-The quote data lives in the JAX package's ``data/chains/*.npz`` files; they
-are read here by file path, so loading a chain imports nothing of the JAX
-package.
+The quote data is the package's own copy of the snapshots,
+``data/chains/*.npz`` beside this module (package data), so an installed
+``stochvolmodels_torch`` finds its chains on its own.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import numpy as np
 
 from stochvolmodels_torch.data.option_chain import OptionChain
 
-CHAINS_DIR = Path(__file__).resolve().parents[2] / "stochvolmodels_tpu" / "data" / "chains"
+CHAINS_DIR = Path(__file__).resolve().parent / "chains"
 
 
 def load_chain_npz(name: str) -> OptionChain:

@@ -4,8 +4,9 @@ Carry state over from the JAX package, through plain numpy and floats only.
 Nothing here imports the JAX package: callers hand over what its objects hold
 (``LogSvParams.to_dict()``, ``HestonParams.to_dict()``,
 ``HawkesJDParams.to_dict()``, the ragged arrays of an ``OptionChain``, a vol
-backbone Series, the uint32 QMC panels), so the same state can be fed to
-both packages.
+backbone Series, the uint32 QMC panels of LogSV's and Heston's Sobol
+engines, two streams a step), so the same state can be fed to both
+packages.
 """
 from __future__ import annotations
 

@@ -9,7 +9,10 @@ scheme, either eagerly in float64 (``engine='scan'``) or through the
 hand-written CUDA kernel ``csrc/heston_mc.cu`` and its plain version
 (``engine='cuda'``).  Calibration fits the chain's mid vols: SLSQP with the
 Feller constraint and torch gradients, or Levenberg-Marquardt as one CUDA
-graph on a card.  QMC, antithetic draws and greeks are not ported yet.
+graph on a card.  The eager engine also takes antithetic draws, and
+``engine='qmc'`` draws randomized Sobol normals (one CUDA graph a slice on a
+card); options on quadratic variance are priced on the Psi grid, and the
+chain greeks come from ``models/greeks.py``.
 """
 from __future__ import annotations
 
@@ -23,14 +26,16 @@ from scipy.optimize import OptimizeResult, minimize
 
 from stochvolmodels_torch.config import VariableType
 from stochvolmodels_torch.data.option_chain import ChainGrid, OptionChain
+from stochvolmodels_torch.models.logsv.affine import f64_scalars
 from stochvolmodels_torch.models.logsv.pricer import _pad_panel
 from stochvolmodels_torch.models.model_pricer import ModelParams, ModelPricer
-from stochvolmodels_torch.ops import bsm, graphs, mgf
+from stochvolmodels_torch.ops import bsm, graphs, mgf, qmc
 from stochvolmodels_torch.ops.cuda_mc import (VAR_FLOOR, engine_setup,
                                               simulate_heston_terminal_kernel)
 from stochvolmodels_torch.ops.lm import lm_minimize
 from stochvolmodels_torch.ops.payoffs import compute_mc_vars_payoff
-from stochvolmodels_torch.ops.random import generator_from_seed, step_normals
+from stochvolmodels_torch.ops.random import (DEFAULT_SEED, antithetic_step_normals,
+                                             generator_from_seed, step_normals)
 from stochvolmodels_torch.utils.funcs import set_time_grid, timer
 
 
@@ -117,9 +122,11 @@ def heston_chain_price_grid(grid: ChainGrid,
     tensors on the grid's device; with tensors the prices carry their
     gradients (reverse mode) and tangents (``torch.func.jacfwd``), and have
     the same bits as from floats.  The maturities (``ttms_static``, read
-    from the grid when not given) are host numbers.
+    from the grid when not given) are host numbers.  ``variable_type=Q_VAR``
+    prices calls on the annualised quadratic variance on the 40,000-point
+    Psi grid, from the same closed form.
     """
-    if variable_type != VariableType.LOG_RETURN:
+    if variable_type not in (VariableType.LOG_RETURN, VariableType.Q_VAR):
         raise NotImplementedError(f"variable_type={variable_type}")
     if ttms_static is None:
         ttms_static = tuple(float(t) for t in grid.ttms.cpu().numpy())
@@ -135,11 +142,18 @@ def heston_chain_price_grid(grid: ChainGrid,
         log_mgf, a_t, b_t = compute_heston_mgf_grid(
             v0=v0, theta=theta, kappa=kappa, volvol=volvol, rho=rho, ttm=ttm - ttm0,
             phi_grid=phi_grid, psi_grid=psi_grid, a_t0=a_t, b_t0=b_t)
-        prices.append(mgf.vanilla_prices_with_mgf_grid(
-            log_mgf_grid=log_mgf, phi_grid=phi_grid, forwards=grid.forwards[i],
-            strikes=grid.strikes[i], optiontypes=grid.optioncodes[i],
-            discfactors=grid.discfactors[i], is_spot_measure=is_spot_measure,
-            is_simpson=is_simpson))
+        if variable_type == VariableType.LOG_RETURN:
+            prices.append(mgf.vanilla_prices_with_mgf_grid(
+                log_mgf_grid=log_mgf, phi_grid=phi_grid, forwards=grid.forwards[i],
+                strikes=grid.strikes[i], optiontypes=grid.optioncodes[i],
+                discfactors=grid.discfactors[i], is_spot_measure=is_spot_measure,
+                is_simpson=is_simpson))
+        else:
+            prices.append(mgf.qvar_prices_with_mgf_grid(
+                log_mgf_grid=log_mgf, psi_grid=psi_grid, ttms=grid.ttms[i],
+                strikes=grid.strikes[i], optiontypes=grid.optioncodes[i],
+                forwards=grid.forwards[i], discfactors=grid.discfactors[i],
+                is_simpson=is_simpson, is_spot_measure=is_spot_measure))
         ttm0 = ttm
     return torch.stack(prices, dim=0)
 
@@ -147,6 +161,16 @@ def heston_chain_price_grid(grid: ChainGrid,
 # ----------------------------------------------------------------------------
 # Monte Carlo
 # ----------------------------------------------------------------------------
+
+def _heston_step(x, var, qvar, w0, w1, dt: float, theta, kappa, rho, rho_1, volvol):
+    """one full-truncation Euler step on scaled increments (w0, w1)."""
+    sigma = torch.sqrt(var)
+    var_dt = var * dt
+    x = x - 0.5 * var_dt + sigma * w0
+    qvar = qvar + var_dt
+    var = var + kappa * (theta - var) * dt + sigma * volvol * (rho * w0 + rho_1 * w1)
+    return x, torch.clamp(var, min=VAR_FLOOR), qvar
+
 
 def simulate_heston_terminal(gen: torch.Generator,
                              x0: torch.Tensor,
@@ -157,25 +181,112 @@ def simulate_heston_terminal(gen: torch.Generator,
                              kappa: float,
                              rho: float,
                              volvol: float,
-                             nb_steps_per_year: int = 360
+                             nb_steps_per_year: int = 360,
+                             antithetic: bool = False
                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """full-truncation Euler to the horizon ``ttm``, one eager step at a time
-    in the dtype of ``x0``, with normals drawn from ``gen``."""
+    in the dtype of ``x0``, with normals drawn from ``gen`` (``antithetic``:
+    path i + P/2 takes the negated draws of path i)."""
     nb_steps, dt, _ = set_time_grid(ttm=ttm, nb_steps_per_year=nb_steps_per_year)
     sqrt_dt = float(np.sqrt(dt))
     rho_1 = float(np.sqrt(1.0 - rho * rho))
     nb_path = x0.shape[0]
+    draw = antithetic_step_normals if antithetic else step_normals
     x, var, qvar = x0, var0, qvar0
     for _ in range(nb_steps):
-        w = step_normals(gen, (2, nb_path), dtype=x0.dtype) * sqrt_dt
-        w0, w1 = w[0], w[1]
-        sigma = torch.sqrt(var)
-        var_dt = var * dt
-        x = x - 0.5 * var_dt + sigma * w0
-        qvar = qvar + var_dt
-        var = var + kappa * (theta - var) * dt + sigma * volvol * (rho * w0 + rho_1 * w1)
-        var = torch.clamp(var, min=VAR_FLOOR)
+        w = draw(gen, (2, nb_path), dtype=x0.dtype) * sqrt_dt
+        x, var, qvar = _heston_step(x, var, qvar, w[0], w[1], dt, theta, kappa, rho, rho_1,
+                                    volvol)
     return x, var, qvar
+
+
+def _heston_qmc_core_impl(v_tot, shift_tot, v_steps, shifts, bits, x0, var0, qvar0, pvec, *,
+                          dt: float, dtype, nb_replicates: int):
+    """the two passes of the Heston QMC Euler: the raw step columns summed,
+    then the steps on the increments conditioned on the stratified totals."""
+    nb_steps, nb_path = v_steps.shape[0], x0.shape[0]
+    sqrt_dt = float(np.sqrt(dt))
+    theta, kappa, rho, volvol = pvec.unbind()
+    rho_1 = torch.sqrt(1.0 - rho * rho)
+    expand = lambda shift: qmc.expand_replicate_shifts(shift, nb_path, nb_replicates)
+    s0 = s1 = torch.zeros(x0.shape, dtype=dtype, device=x0.device)
+    for t in range(nb_steps):
+        z0, z1 = qmc.qmc_step_normals(bits, v_steps[t], expand(shifts[t]), dtype)
+        s0, s1 = s0 + z0, s1 + z1
+    t0, t1 = qmc.qmc_step_normals(bits, v_tot, expand(shift_tot), dtype)
+    c0 = qmc.stratified_increment_shift(t0, s0, nb_steps)
+    c1 = qmc.stratified_increment_shift(t1, s1, nb_steps)
+    carry = x0.dtype
+    x, var, qvar = x0, var0, qvar0
+    for t in range(nb_steps):
+        z0, z1 = qmc.qmc_step_normals(bits, v_steps[t], expand(shifts[t]), dtype)
+        x, var, qvar = (a.to(carry) for a in _heston_step(
+            x, var, qvar, (z0 + c0) * sqrt_dt, (z1 + c1) * sqrt_dt, dt, theta, kappa, rho, rho_1,
+            volvol))
+    return x, var, qvar
+
+
+def _simulate_heston_terminal_qmc_core(v_tot: torch.Tensor,
+                                       shift_tot: torch.Tensor,
+                                       v_steps: torch.Tensor,
+                                       shifts: torch.Tensor,
+                                       x0: torch.Tensor,
+                                       var0: torch.Tensor,
+                                       qvar0: torch.Tensor,
+                                       dt: float,
+                                       theta,
+                                       kappa,
+                                       rho,
+                                       volvol,
+                                       dtype: torch.dtype = torch.float64,
+                                       nb_replicates: int = 0
+                                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """the full-truncation Euler of :func:`simulate_heston_terminal` on
+    randomized Sobol normals: path i is Sobol point i, each step takes two
+    columns, and each Brownian stream's slice total is stratified onto the
+    slice's two leading dimensions.  The panels are those of
+    :func:`qmc.qmc_scan_panels`; with ``nb_replicates`` R the paths are R
+    contiguous groups, each the same point set under its own shifts.  On
+    the card the slice runs as one CUDA graph per (paths, steps, dt, R,
+    dtype)."""
+    nb_path = x0.shape[0]
+    bits = qmc.gray_bits(qmc.gray_codes(nb_path, nb_replicates, device=x0.device))
+    pvec = torch.stack(f64_scalars(x0.device, theta, kappa, rho, volvol))
+    static = dict(dt=float(dt), dtype=dtype, nb_replicates=int(nb_replicates))
+    inputs = tuple(a.to(x0.device) for a in (v_tot, shift_tot, v_steps, shifts)) + (
+        bits, x0, var0, qvar0, pvec)
+    fn = lambda *a: _heston_qmc_core_impl(*a, **static)
+    if graphs.use_graph(x0):
+        key = (nb_path, v_steps.shape[0]) + tuple(static.values()) + (str(x0.device),)
+        return graphs.run_captured("heston_qmc", key, fn, inputs)
+    return fn(*inputs)
+
+
+def simulate_heston_terminal_qmc(seed: Optional[int],
+                                 x0: torch.Tensor,
+                                 var0: torch.Tensor,
+                                 qvar0: torch.Tensor,
+                                 ttm: float,
+                                 theta,
+                                 kappa,
+                                 rho,
+                                 volvol,
+                                 nb_steps_per_year: int = 360,
+                                 dtype: torch.dtype = torch.float64,
+                                 dim_offset: int = 0,
+                                 nb_replicates: int = 0
+                                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """terminal (x, var, qvar) by randomized QMC; ``dim_offset`` counts the
+    Sobol dimensions of earlier slices of a chain, so a chain continues one
+    sequence.  The digital shifts come from a generator seeded with ``seed``
+    (None -> 24)."""
+    seed = DEFAULT_SEED if seed is None else int(seed)
+    nb_steps, dt, _ = set_time_grid(ttm=ttm, nb_steps_per_year=nb_steps_per_year)
+    panels = qmc.qmc_scan_panels(seed, nb_steps, per_step=2, dim_offset=dim_offset,
+                                 nb_replicates=nb_replicates, device=x0.device)
+    return _simulate_heston_terminal_qmc_core(
+        *panels, x0, var0, qvar0, dt=dt, theta=theta, kappa=kappa, rho=rho, volvol=volvol,
+        dtype=dtype, nb_replicates=nb_replicates)
 
 
 def heston_mc_chain_pricer(ttms: np.ndarray,
@@ -193,7 +304,9 @@ def heston_mc_chain_pricer(ttms: np.ndarray,
                            seed: Optional[int] = None,
                            dtype: torch.dtype = torch.float64,
                            engine: str = "scan",
-                           device="cuda"
+                           device="cuda",
+                           antithetic: bool = False,
+                           qmc_replicates: int = 8
                            ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
     """chain MC with the terminal state carried across maturities; returns
     ragged (prices, stderrs).
@@ -202,36 +315,62 @@ def heston_mc_chain_pricer(ttms: np.ndarray,
     through the hand-written CUDA kernel on a CUDA ``device`` and through its
     plain version on the CPU; slice ``i`` takes the seed ``base + 7919*i``.
     ``engine='scan'`` (default) runs the eager Euler loop in ``dtype`` with
-    normals from a generator seeded by ``seed``.
+    normals from a generator seeded by ``seed``; ``antithetic=True`` (scan
+    only) mirrors path i + P/2 on path i and takes the stderr over the pair
+    averages.  ``engine='qmc'`` draws randomized Sobol normals (one sequence
+    across the chain) in ``qmc_replicates`` independently shifted copies,
+    with the stderr over the replicate means (0 or 1: one unreplicated
+    set).  Antithetic and replicated runs pad ``nb_path`` up to a multiple
+    of 2 or R.
     """
     if engine == "pallas":
         engine = "cuda"
-    if engine not in ("scan", "cuda"):
+    if engine not in ("scan", "cuda", "qmc"):
         raise NotImplementedError(f"engine={engine}")
+    if antithetic and engine != "scan":
+        raise NotImplementedError("antithetic variates require engine='scan' (the kernel "
+                                  "draws its normals on the card; Sobol points are "
+                                  "stratified already)")
+    if antithetic and nb_path % 2:
+        nb_path += 1
+    qmc_replicates = int(qmc_replicates) if engine == "qmc" else 0
+    if qmc_replicates == 1:
+        qmc_replicates = 0
+    if qmc_replicates and nb_path % qmc_replicates:
+        nb_path += qmc_replicates - nb_path % qmc_replicates
     device = torch.device(device)
     if engine == "cuda":
         nb_pad, base_seed = engine_setup(seed, nb_path)
         dtype = torch.float32
     else:
-        nb_pad, gen = nb_path, generator_from_seed(seed, device=device)
+        nb_pad = nb_path
+        if engine == "scan":
+            gen = generator_from_seed(seed, device=device)
     x = torch.zeros(nb_pad, dtype=dtype, device=device)
     var = torch.full((nb_pad,), v0, dtype=dtype, device=device)
     qvar = torch.zeros(nb_pad, dtype=dtype, device=device)
     ttm0 = 0.0
+    dim_offset = 0
     option_prices_ttm, option_std_ttm = [], []
     for i, ttm in enumerate(ttms):
         kw = dict(ttm=float(ttm - ttm0), theta=theta, kappa=kappa, rho=rho, volvol=volvol)
         if engine == "cuda":
             x, var, qvar = simulate_heston_terminal_kernel(
                 seed=base_seed + 7919 * i, x0=x, var0=var, qvar0=qvar, **kw)
+        elif engine == "qmc":
+            x, var, qvar = simulate_heston_terminal_qmc(
+                seed, x, var, qvar, dtype=dtype, dim_offset=dim_offset,
+                nb_replicates=qmc_replicates, **kw)
+            dim_offset += qmc.qmc_dims_per_slice(set_time_grid(ttm=kw["ttm"])[0])
         else:
-            x, var, qvar = simulate_heston_terminal(gen=gen, x0=x, var0=var, qvar0=qvar, **kw)
+            x, var, qvar = simulate_heston_terminal(gen=gen, x0=x, var0=var, qvar0=qvar,
+                                                    antithetic=antithetic, **kw)
         ttm0 = float(ttm)
         prices, stds = compute_mc_vars_payoff(
             x0=x[:nb_path], sigma0=torch.sqrt(var[:nb_path]), qvar0=qvar[:nb_path], ttm=ttm,
             forward=forwards[i], strikes_ttm=strikes_ttms[i],
             optiontypes_ttm=optiontypes_ttms[i], discfactor=discfactors[i],
-            variable_type=variable_type)
+            variable_type=variable_type, antithetic=antithetic, nb_replicates=qmc_replicates)
         option_prices_ttm.append(prices)
         option_std_ttm.append(stds)
     return option_prices_ttm, option_std_ttm
@@ -244,6 +383,14 @@ def heston_mc_chain_pricer(ttms: np.ndarray,
 class HestonPricer(ModelPricer):
     """ModelPricer for Heston, valued by Fourier inversion of the analytic
     MGF; tensors live on ``device``."""
+
+    def compute_chain_greeks(self, option_chain: OptionChain, params: HestonParams,
+                             greeks=("delta", "gamma", "vega"), **kwargs):
+        """model-consistent chain greeks by forward-mode AD through the
+        analytic pricer on the pricer's device (``models/greeks.py``)."""
+        from stochvolmodels_torch.models.greeks import heston_chain_greeks
+        return heston_chain_greeks(option_chain=option_chain, params=params, greeks=greeks,
+                                   device=self.device, **kwargs)
 
     def price_chain(self, option_chain: OptionChain, params: HestonParams,
                     variable_type: VariableType = VariableType.LOG_RETURN,
@@ -300,17 +447,17 @@ class HestonPricer(ModelPricer):
                              seed: Optional[int] = None,
                              **kwargs) -> Tuple[List[np.ndarray], List[np.ndarray]]:
         """MC chain prices and standard errors on the pricer's device
-        (``engine='scan'`` or ``'cuda'``/``'pallas'``); antithetic draws are
-        not ported and raise."""
-        if kwargs.get("antithetic"):
-            raise NotImplementedError("antithetic Heston MC is not ported")
+        (``engine='scan'``, ``'qmc'`` or ``'cuda'``/``'pallas'``;
+        ``antithetic=True`` with ``'scan'``)."""
         return heston_mc_chain_pricer(
             ttms=option_chain.ttms, forwards=option_chain.forwards,
             discfactors=option_chain.discfactors, strikes_ttms=option_chain.strikes_ttms,
             optiontypes_ttms=option_chain.optiontypes_ttms, v0=params.v0,
             theta=params.theta, kappa=params.kappa, rho=params.rho, volvol=params.volvol,
             nb_path=nb_path, variable_type=variable_type, seed=seed,
-            engine=kwargs.get("engine", "scan"), device=self.device)
+            engine=kwargs.get("engine", "scan"), device=self.device,
+            antithetic=kwargs.get("antithetic", False),
+            qmc_replicates=kwargs.get("qmc_replicates", 8))
 
     @timer
     def simulate_terminal_values(self, params: HestonParams, ttm: float = 1.0,

@@ -12,7 +12,11 @@ with n = 3 (first order) or 5 (second order) coefficients.  The state is an
 together.  Lanes that diverge are frozen at a cap (see ``solve_a_ode_grid``);
 the stiff SIGMA and Q_VAR starts take a graded warmup schedule.
 The parameters may be 0-dim float64 tensors, so that calibration takes
-forward- and reverse-mode derivatives through the solve.
+forward- and reverse-mode derivatives through the solve.  The
+exponential-Euler scheme (``solve_analytic_ode_grid``, the reference's
+``is_analytic`` path) advances the linear part exactly and the quadratic by
+a fixed-point midpoint; the single-point entry points of the reference's
+API (``solve_ode_for_a`` and the like) wrap both solvers.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from stochvolmodels_torch.config import VariableType
+from stochvolmodels_torch.ops import graphs
 from stochvolmodels_torch.ops.mgf import PSI_SPAN, THETA_SPAN
 
 
@@ -291,6 +296,277 @@ def _solve_a_ode_grid_dts(dts, theta, kappa1, kappa2, beta, volvol, phi_grid: to
     return A
 
 
+# ----------------------------------------------------------------------------
+# the exponential-Euler solver (the reference's "analytic" path)
+# ----------------------------------------------------------------------------
+
+def _expm_phi1(L: torch.Tensor, dt: float, n_squarings: int = 10,
+               taylor_terms: int = 10) -> Tuple[torch.Tensor, torch.Tensor]:
+    """batched (expm(L dt), dt phi1(L dt)) of a complex128 (N, n, n) panel.
+
+    phi1(z) = (e^z - 1)/z = sum_k z^k/(k+1)! gives the exact integral of
+    the linear step, int_0^dt expm(L s) ds = dt phi1(L dt), with no matrix
+    inverse and no special case for zero eigenvalues.  Scaling and squaring
+    with the joint recurrence E <- E^2, P <- (E + I)/2 P keeps the Taylor
+    argument at |L dt| / 2^10, so 10 terms reach ~1e-15 (the JAX package's
+    ``_expm_phi1``; ``torch.linalg.matrix_exp`` rounds otherwise and gives
+    no phi1).
+    """
+    A = L * (dt / (2.0 ** n_squarings))
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    T = E = P = eye.expand(L.shape)
+    for k in range(1, taylor_terms + 1):
+        T = torch.matmul(T, A / k)
+        E = E + T
+        P = P + T / (k + 1.0)
+    for _ in range(n_squarings):
+        P = torch.matmul(0.5 * (E + eye), P)
+        E = torch.matmul(E, E)
+    return E, P * dt
+
+
+def analytic_nb_steps(ttm: float, p_max: float, year_days: int = 260) -> int:
+    """steps of :func:`solve_analytic_ode_grid` over ``ttm``: daily
+    (``year_days`` a year), and at least 25 p_max ttm, so that |phi| dt
+    stays inside the fixed point's contraction region."""
+    return max(int(np.ceil(year_days * float(ttm))), int(np.ceil(25.0 * p_max * float(ttm))), 1)
+
+
+def phi_grid_p_max(vol_scaler: float) -> float:
+    """max|Im phi| + max|Re phi| of ``mgf.get_phi_grid(vol_scaler=...)``
+    from its host constants: the grid ends at exactly 5.6 / vol_scaler and
+    its real part is -1/2 or +1/2."""
+    return 5.6 / float(vol_scaler) + 0.5
+
+
+def _analytic_steps(phi_grid, psi_grid, a_t0, pvec, *, nb_steps: int, dt: float, nfp: int,
+                    is_spot_measure: bool, expansion_order: ExpansionOrder):
+    """the ``nb_steps`` exponential-midpoint steps of
+    :func:`solve_analytic_ode_grid` from ``a_t0``; ``pvec`` = (theta,
+    kappa1, kappa2, beta, volvol, eta) float64 on the grid's device."""
+    theta, kappa1, kappa2, beta, volvol, eta = pvec.unbind()
+    M, L0, L1, h = func_a_ode_quadratic_terms(
+        theta=theta, kappa1=kappa1, kappa2=kappa2, beta=beta, volvol=volvol,
+        is_spot_measure=is_spot_measure, expansion_order=expansion_order,
+        vol_backbone_eta=eta)
+    M_flat, L, H = build_grid_ode_terms(M, L0, L1, h, phi_grid, psi_grid, is_spot_measure)
+    E, P = _expm_phi1(L, dt)
+    cap = 1e6
+
+    def bad_of(a: torch.Tensor) -> torch.Tensor:
+        # ~(x < cap) is also True for NaN
+        return (~(torch.abs(a.real) < cap) | ~(torch.abs(a.imag) < cap)).any(-1)
+
+    frozen = torch.complex(torch.full_like(a_t0.real, cap), torch.zeros_like(a_t0.real))
+    dead = bad_of(a_t0)
+    a = torch.where(dead[:, None], frozen, a_t0)
+    for _ in range(nb_steps):
+        ea = torch.matmul(E, a[:, :, None])[..., 0]
+        f = a
+        for _ in range(nfp):
+            m = 0.5 * (a + f)
+            q = (m[:, :, None] * m[:, None, :]).flatten(1) @ M_flat.T + H
+            f = ea + torch.matmul(P, q[:, :, None])[..., 0]
+        dead = dead | bad_of(f)
+        a = torch.where(dead[:, None], frozen, f)
+    return (a,)
+
+
+def solve_analytic_ode_grid(phi_grid: torch.Tensor,
+                            psi_grid: torch.Tensor,
+                            ttm: float,
+                            theta,
+                            kappa1,
+                            kappa2,
+                            beta,
+                            volvol,
+                            is_spot_measure: bool = True,
+                            a_t0: Optional[torch.Tensor] = None,
+                            expansion_order: ExpansionOrder = ExpansionOrder.SECOND,
+                            vol_backbone_eta=1.0,
+                            year_days: int = 260,
+                            nfp: int = 10,
+                            p_max: Optional[float] = None) -> torch.Tensor:
+    """the exponential-Euler alternative to :func:`solve_a_ode_grid`.
+
+    The linear part advances exactly through E = expm(L dt) and the
+    quadratic A'MA is resolved by ``nfp`` fixed-point iterations of the
+    exponential-midpoint update
+
+        A_{t+dt} = E A_t + dt phi1(L dt) (H + quad((A_t + A_fp)/2)).
+
+    Steps: :func:`analytic_nb_steps` from ``p_max`` = max|Im phi| +
+    max|Re phi|, a host number: give it (:func:`phi_grid_p_max` of the
+    grid's vol scaler) for a grid on a card, where reading it back would
+    stall the stream; a CPU grid is read.  Divergence freeze as in
+    :func:`solve_a_ode_grid`: a lane whose |Re A| or |Im A| passes 1e6 (or
+    turns NaN) is frozen at re=1e6, im=0.  On a card, with parameters that
+    carry no gradient, the solve is one CUDA graph per (grid size, ttm,
+    steps, expansion order, measure).
+    """
+    n = get_expansion_n(expansion_order)
+    if a_t0 is None:
+        a_t0 = torch.zeros((phi_grid.shape[0], n), dtype=torch.complex128,
+                           device=phi_grid.device)
+    if p_max is None:
+        if phi_grid.is_cuda:
+            raise ValueError("solve_analytic_ode_grid: pass p_max (phi_grid_p_max(vol_scaler)) "
+                             "for a grid on a card")
+        p_max = float(torch.max(torch.abs(phi_grid.imag)) + torch.max(torch.abs(phi_grid.real)))
+    nb_steps = analytic_nb_steps(ttm, p_max, year_days)
+    pvec = torch.stack(f64_scalars(phi_grid.device, theta, kappa1, kappa2, beta, volvol,
+                                   vol_backbone_eta))
+    static = dict(nb_steps=nb_steps, dt=float(ttm) / nb_steps, nfp=int(nfp),
+                  is_spot_measure=bool(is_spot_measure), expansion_order=expansion_order)
+    inputs = (phi_grid, psi_grid, a_t0.to(torch.complex128), pvec)
+    fn = lambda *a: _analytic_steps(*a, **static)
+    if graphs.use_graph(phi_grid) and not pvec.requires_grad:
+        key = (phi_grid.shape[0], float(ttm)) + tuple(static.values()) + (str(phi_grid.device),)
+        return graphs.run_captured("logsv_analytic_ode", key, fn, inputs)[0]
+    return fn(*inputs)[0]
+
+
+# ----------------------------------------------------------------------------
+# single-point entry points of the reference's API (numpy in and out)
+# ----------------------------------------------------------------------------
+
+def _terms_np(theta, kappa1, kappa2, beta, volvol, phi, psi,
+              is_spot_measure=True,
+              expansion_order: ExpansionOrder = ExpansionOrder.FIRST,
+              vol_backbone_eta: float = 1.0):
+    """assembled numpy-complex (M, L, H) at one transform point."""
+    M, L0, L1, h = func_a_ode_quadratic_terms(
+        theta, kappa1, kappa2, beta, volvol, is_spot_measure=is_spot_measure,
+        expansion_order=expansion_order, vol_backbone_eta=vol_backbone_eta)
+    L = L0 + phi * L1
+    p = 1.0 if is_spot_measure else -1.0
+    H = h * (phi * (phi + p) - 2.0 * psi)
+    return M, L, H
+
+
+def func_rhs(t, A0, M, L, H):
+    """right-hand side of the coefficient ODEs at one point, in the
+    reference's signature (t, A, M, L, H)."""
+    n = A0.shape[0]
+    quadratic = np.array([A0.T @ M[k] @ A0 for k in range(n)])
+    return quadratic + L @ A0 + H
+
+
+def func_rhs_jac(t, A0, M, L, H):
+    """Jacobian of :func:`func_rhs`."""
+    n = A0.shape[0]
+    quadratic = np.stack([2.0 * M[k] @ A0 for k in range(n)])
+    return quadratic + L
+
+
+class _OdeResultShim:
+    """stand-in for scipy's OdeResult: ``.y`` (n, n_t), ``.t`` (n_t,), and a
+    linear interpolant ``.sol(t)`` when built from a dense trajectory."""
+
+    def __init__(self, y: np.ndarray, t: Optional[np.ndarray] = None):
+        self.y = y
+        self.t = np.array([0.0]) if t is None else t
+
+    def sol(self, t):
+        t = np.atleast_1d(np.asarray(t, dtype=float))
+        return np.stack([np.interp(t, self.t, self.y[i]) for i in range(self.y.shape[0])])
+
+
+def _point(z, device) -> torch.Tensor:
+    """a complex number as a (1,) complex128 tensor on ``device``."""
+    return torch.tensor([complex(z)], dtype=torch.complex128, device=device)
+
+
+def _start(a_t0, n: int, device) -> torch.Tensor:
+    """A(0) of a single-point solve as a (1, n) complex128 tensor."""
+    if a_t0 is None:
+        return torch.zeros((1, n), dtype=torch.complex128, device=device)
+    return torch.as_tensor(np.asarray(a_t0, dtype=complex), device=device).reshape(1, n)
+
+
+def solve_ode_for_a(ttm, theta, kappa1, kappa2, beta, volvol, phi, psi,
+                    is_spot_measure: bool = True, a_t0=None,
+                    expansion_order: ExpansionOrder = ExpansionOrder.FIRST,
+                    is_stiff_solver: bool = False, dense_output: bool = False,
+                    vol_backbone_eta: float = 1.0, device="cuda", **kwargs) -> _OdeResultShim:
+    """single-point solve in the reference's signature, by the batched RK4.
+
+    ``dense_output=True`` returns the trajectory on a uniform time grid
+    (``.t`` (n_t,), ``.y`` (n, n_t), linear ``.sol``) by chaining equal
+    sub-interval solves; ``is_stiff_solver`` selects the 4x finer schedule
+    of :func:`solve_a_ode_grid`.
+    """
+    n = get_expansion_n(expansion_order)
+    common = dict(theta=theta, kappa1=kappa1, kappa2=kappa2, beta=beta, volvol=volvol,
+                  phi_grid=_point(phi, device), psi_grid=_point(psi, device),
+                  is_spot_measure=is_spot_measure, expansion_order=expansion_order,
+                  vol_backbone_eta=vol_backbone_eta, is_stiff_solver=is_stiff_solver)
+    a0 = _start(a_t0, n, device)
+    if dense_output:
+        n_seg = max(int(np.ceil(100 * float(ttm))), 16)
+        t_grid = np.linspace(0.0, float(ttm), n_seg + 1)
+        traj = [a0[0].cpu().numpy()]
+        a_cur = a0
+        for _ in range(n_seg):
+            a_cur = solve_a_ode_grid(ttm=float(ttm) / n_seg, a_t0=a_cur, **common)
+            traj.append(a_cur[0].cpu().numpy())
+        return _OdeResultShim(np.stack(traj, axis=1), t_grid)
+    a1 = solve_a_ode_grid(ttm=float(ttm), a_t0=a0, **common)
+    return _OdeResultShim(a1[0].cpu().numpy()[:, None], np.array([float(ttm)]))
+
+
+def solve_analytic_ode_for_a(ttm, theta, kappa1, kappa2, beta, volvol, phi, psi,
+                             is_spot_measure, a_t0=None,
+                             expansion_order: ExpansionOrder = ExpansionOrder.FIRST,
+                             year_days: int = 260, device="cuda", **kwargs) -> np.ndarray:
+    """single-point exponential-Euler solve in the reference's signature
+    (:func:`solve_analytic_ode_grid` on one transform point)."""
+    n = get_expansion_n(expansion_order)
+    a1 = solve_analytic_ode_grid(
+        ttm=float(ttm), theta=theta, kappa1=kappa1, kappa2=kappa2, beta=beta, volvol=volvol,
+        phi_grid=_point(phi, device), psi_grid=_point(psi, device),
+        a_t0=_start(a_t0, n, device), is_spot_measure=is_spot_measure,
+        expansion_order=expansion_order, year_days=year_days,
+        p_max=abs(complex(phi).imag) + abs(complex(phi).real))
+    return a1[0].cpu().numpy()
+
+
+def solve_analytic_ode_for_a0(t_span, theta, kappa1, kappa2, beta, volvol, phi, psi,
+                              expansion_order: ExpansionOrder = ExpansionOrder.FIRST,
+                              device="cuda") -> np.ndarray:
+    """the reference's superseded entry point: :func:`solve_analytic_ode_for_a`
+    over ``t_span`` under the spot measure."""
+    return solve_analytic_ode_for_a(ttm=t_span[1] - t_span[0], theta=theta, kappa1=kappa1,
+                                    kappa2=kappa2, beta=beta, volvol=volvol, phi=phi, psi=psi,
+                                    is_spot_measure=True, expansion_order=expansion_order,
+                                    device=device)
+
+
+def solve_analytic_ode_grid_phi(phi_grid, psi_grid, ttm, theta, kappa1, kappa2, beta, volvol,
+                                is_spot_measure: bool = True, a_t0=None,
+                                expansion_order: ExpansionOrder = ExpansionOrder.FIRST,
+                                use_analytic_scheme: bool = True, device="cuda") -> np.ndarray:
+    """grid solve with numpy-complex input and output, by the exponential-
+    Euler scheme (``use_analytic_scheme=False``: the RK4)."""
+    phi_np = np.asarray(phi_grid, dtype=complex)
+    phi_t = torch.as_tensor(phi_np, device=device)
+    psi_t = torch.as_tensor(np.asarray(psi_grid, dtype=complex), device=device)
+    n = get_expansion_n(expansion_order)
+    if a_t0 is None:
+        a0 = torch.zeros((phi_t.shape[0], n), dtype=torch.complex128, device=device)
+    else:
+        a0 = torch.as_tensor(np.asarray(a_t0, dtype=complex), device=device)
+    common = dict(ttm=float(ttm), theta=theta, kappa1=kappa1, kappa2=kappa2, beta=beta,
+                  volvol=volvol, phi_grid=phi_t, psi_grid=psi_t, a_t0=a0,
+                  is_spot_measure=is_spot_measure, expansion_order=expansion_order)
+    if use_analytic_scheme:
+        a1 = solve_analytic_ode_grid(p_max=float(np.max(np.abs(phi_np.imag))
+                                                 + np.max(np.abs(phi_np.real))), **common)
+    else:
+        a1 = solve_a_ode_grid(**common)
+    return a1.cpu().numpy()
+
+
 def get_init_conditions_a(phi_grid: torch.Tensor, psi_grid: torch.Tensor,
                           theta_grid: torch.Tensor, n_terms: int,
                           variable_type: VariableType = VariableType.LOG_RETURN
@@ -344,14 +620,13 @@ def compute_logsv_a_mgf_grid(ttm: float,
     tensor parameters (the JAX package's bound for traced ones).  Q_VAR
     steps at int(720 * 2 sqrt(span / 1000)) = 2880 steps/yr unless
     ``nb_steps`` is given.  ``engine`` 'f64' and 'df32' (the JAX package's
-    TPU carrier) both run the float64 RK4; ``is_analytic=True`` (the
-    exponential-Euler scheme) is not ported.
+    TPU carrier) both run the float64 RK4.  ``is_analytic=True`` runs
+    LOG_RETURN through the exponential-Euler :func:`solve_analytic_ode_grid`
+    (SIGMA and Q_VAR keep the graded-warmup RK4, as in the JAX package); on
+    a card it needs the grid's ``vol_scaler`` as a keyword.
     """
     if engine not in ("f64", "df32"):
         raise NotImplementedError(f"engine={engine}")
-    if is_analytic:
-        raise NotImplementedError("is_analytic=True: the exponential-Euler solve_analytic_ode_grid "
-                                  "is not ported (ROADMAP queue 1)")
     n_terms = get_expansion_n(expansion_order)
     if a_t0 is None:
         a_t0 = get_init_conditions_a(phi_grid=phi_grid, psi_grid=psi_grid,
@@ -368,11 +643,19 @@ def compute_logsv_a_mgf_grid(ttm: float,
         if variable_type == VariableType.Q_VAR and nb_steps is None:
             year_steps_eff = int(720 * max(1.0, 2.0 * np.sqrt(span / 1000.0)))
             nb_steps = max(int(np.ceil(year_steps_eff * float(ttm))), 16)
-    a_t1 = solve_a_ode_grid(ttm=ttm, theta=theta, kappa1=kappa1, kappa2=kappa2, beta=beta,
-                            volvol=volvol, phi_grid=phi_grid, psi_grid=psi_grid, a_t0=a_t0,
-                            is_spot_measure=is_spot_measure, expansion_order=expansion_order,
-                            vol_backbone_eta=vol_backbone_eta, nb_steps=nb_steps,
-                            warmup_scale=warmup_scale, is_stiff_solver=is_stiff_solver)
+    if is_analytic and variable_type == VariableType.LOG_RETURN:
+        vol_scaler = kwargs.get("vol_scaler")
+        p_max = None if vol_scaler is None else phi_grid_p_max(vol_scaler)
+        a_t1 = solve_analytic_ode_grid(
+            ttm=ttm, theta=theta, kappa1=kappa1, kappa2=kappa2, beta=beta, volvol=volvol,
+            phi_grid=phi_grid, psi_grid=psi_grid, a_t0=a_t0, is_spot_measure=is_spot_measure,
+            expansion_order=expansion_order, vol_backbone_eta=vol_backbone_eta, p_max=p_max)
+    else:
+        a_t1 = solve_a_ode_grid(ttm=ttm, theta=theta, kappa1=kappa1, kappa2=kappa2, beta=beta,
+                                volvol=volvol, phi_grid=phi_grid, psi_grid=psi_grid, a_t0=a_t0,
+                                is_spot_measure=is_spot_measure, expansion_order=expansion_order,
+                                vol_backbone_eta=vol_backbone_eta, nb_steps=nb_steps,
+                                warmup_scale=warmup_scale, is_stiff_solver=is_stiff_solver)
     return a_t1, contract_log_mgf(a_t1, sigma0 - theta, expansion_order)
 
 

@@ -94,6 +94,22 @@ def set_vol_scaler(sigma0: float, ttm: float) -> float:
     return sigma0 * np.sqrt(np.minimum(np.min(ttm), 0.5 / 12.0))
 
 
+def v0_implied(atm: float, beta: float, volvol: float, theta: float,
+               kappa1: float, ttm: float) -> float:
+    """sigma0 from a short-maturity ATM vol (the reference's inversion)."""
+    beta2 = beta * beta
+    vartheta2 = beta2 + volvol * volvol
+    if np.abs(beta) > 1.0:
+        return atm - vartheta2 * ttm / 4.0
+    numer = (-24.0 - beta2 * ttm - 2.0 * vartheta2 * ttm + 12.0 * kappa1 * ttm
+             + np.sqrt(np.square(24.0 + beta2 * ttm + 2.0 * vartheta2 * ttm - 12.0 * kappa1 * ttm)
+                       - 288.0 * beta * ttm * (-2.0 * atm + theta * kappa1 * ttm)))
+    denumer = 12.0 * beta * ttm
+    if np.abs(denumer) > 1e-10:
+        return numer / denumer
+    return atm - vartheta2 * ttm / 4.0
+
+
 def use_float32_default() -> bool:
     """False: the port's calibration objectives run in float64, the card's
     native precision (the JAX package defaults to float32 on a TPU, which
@@ -852,6 +868,14 @@ def _mc_calibration_slices(grid: ChainGrid, ttms_static: Tuple[float, ...],
 class LogSVPricer(ModelPricer):
     """ModelPricer for the LogSV model of Eq. (3.12); tensors live on ``device``."""
 
+    def compute_chain_greeks(self, option_chain: OptionChain, params: LogSvParams,
+                             greeks=("delta", "gamma", "vega"), **kwargs):
+        """model-consistent chain greeks by forward-mode AD through the
+        analytic pricer on the pricer's device (``models/greeks.py``)."""
+        from stochvolmodels_torch.models.greeks import logsv_chain_greeks
+        return logsv_chain_greeks(option_chain=option_chain, params=params, greeks=greeks,
+                                  device=self.device, **kwargs)
+
     def price_chain(self, option_chain: OptionChain, params: LogSvParams,
                     is_spot_measure: bool = True,
                     variable_type: VariableType = VariableType.LOG_RETURN,
@@ -1239,3 +1263,25 @@ class LogSVPricer(ModelPricer):
                                                              vol_4thmoment_finite)}
         constraints = tuple({"type": "ineq", "fun": f} for f in funs[constraints_type])
         return objective, p0, bounds, constraints, expand
+
+
+def logsv_chain_pricer(params: LogSvParams,
+                       ttms: np.ndarray,
+                       forwards: np.ndarray,
+                       discfactors: np.ndarray,
+                       strikes_ttms,
+                       optiontypes_ttms,
+                       is_spot_measure: bool = True,
+                       expansion_order: ExpansionOrder = ExpansionOrder.SECOND,
+                       variable_type: VariableType = VariableType.LOG_RETURN,
+                       vol_scaler: Optional[float] = None,
+                       device="cuda",
+                       **kwargs) -> List[np.ndarray]:
+    """functional chain pricer in the reference's signature: the ragged
+    chain priced by :meth:`LogSVPricer.price_chain` on ``device``."""
+    chain = OptionChain(ttms=np.asarray(ttms), forwards=np.asarray(forwards),
+                        discfactors=np.asarray(discfactors), strikes_ttms=list(strikes_ttms),
+                        optiontypes_ttms=list(optiontypes_ttms))
+    return LogSVPricer(device=device).price_chain(
+        option_chain=chain, params=params, is_spot_measure=is_spot_measure,
+        expansion_order=expansion_order, variable_type=variable_type, vol_scaler=vol_scaler)

@@ -1,8 +1,8 @@
 """
 Strang-splitting simulation of the rough LogSV model via its Markovian lift.
 
-PyTorch counterpart of ``stochvolmodels_tpu/models/rough/simulation.py`` for
-the RK4 drift scheme.  The lifted volatility is sigma = sum_i w_i v_i over N
+PyTorch counterpart of ``stochvolmodels_tpu/models/rough/simulation.py``.
+The lifted volatility is sigma = sum_i w_i v_i over N
 factors; each time step composes a half-step RK4 drift solve, an exact
 log-normal diffusion step on the weighted sum and another half drift step,
 followed by the log-spot reconstruction.  Factor panels are (n, nb_path)
@@ -11,8 +11,10 @@ normals from a ``torch.Generator``; the ``'cuda'`` engine runs them in the
 hand-written CUDA kernel ``csrc/rough_mc.cu`` (its plain version on the
 CPU).  The fixed-randoms variant runs the same float64 steps over
 pre-drawn normal blocks; its parameters may be 0-dim float64 tensors, so the
-rough MC calibration differentiates through it.  The exact-linear
-``'expm'`` drift scheme is not ported yet.
+rough MC calibration differentiates through it.  The float64 engines take
+either drift scheme: the RK4 half-step (``drift_scheme='rk4'``, the
+default) or the exact-linear step (``'expm'``, :func:`drift_ode_expm`); the
+CUDA kernel keeps the RK4 drift, as the TPU kernel does.
 """
 from __future__ import annotations
 
@@ -46,6 +48,50 @@ def drift_ode_rk4(nodes: torch.Tensor, v0: torch.Tensor, theta, kappa1, kappa2,
     return z0 + (h / 6.0) * (s1 + 2.0 * s2 + 2.0 * s3 + s4)
 
 
+def drift_ode_expm(nodes: torch.Tensor, v0: torch.Tensor, theta, kappa1, kappa2,
+                   z0: torch.Tensor, weights: torch.Tensor, h,
+                   n_squarings: int = 6, taylor_terms: int = 8) -> torch.Tensor:
+    """exact-linear drift step: the mean-reversion speed lambda = kappa1 +
+    kappa2 (w.z0) is frozen at the step start, so the drift ODE is linear,
+
+        dz = A z + b,   A = -(lambda w^T + diag(x)),   b = lambda theta + x v0,
+
+    and advances exactly by z_h = e^{Ah} z0 + h phi1(Ah) b.  e^{Ah} and
+    phi1(Ah) come from one batched scaling-and-squaring Taylor over per-path
+    (P, n, n) real panels (``taylor_terms`` terms at h / 2^``n_squarings``,
+    then phi1(2A) = (e^A + I)/2 phi1(A) at each squaring), so no per-path
+    inverse.  Panels are (n, nb_path) or broadcast to it, as in
+    :func:`drift_ode_rk4`."""
+    n, nb_path = z0.shape
+    zw = torch.sum(weights * z0, dim=0)                          # (P,)
+    lam = kappa1 + kappa2 * zw                                   # (P,)
+    x_p = nodes.T.expand(nb_path, n)
+    w_p = weights.T.expand(nb_path, n)
+    v0_p, z0_p = v0.T.expand(nb_path, n), z0.T                   # (P, n)
+    eye = torch.eye(n, dtype=z0.dtype, device=z0.device)
+    A = -(lam[:, None, None] * w_p[:, None, :]) - eye * x_p[:, None, :]
+    Ah = A * (h / (2.0 ** n_squarings))
+    T = E = P1 = eye.expand(A.shape)
+    for k in range(1, taylor_terms + 1):
+        T = torch.matmul(T, Ah / k)
+        E = E + T
+        P1 = P1 + T / (k + 1.0)
+    for _ in range(n_squarings):
+        P1 = torch.matmul(0.5 * (E + eye), P1)
+        E = torch.matmul(E, E)
+    b_p = lam[:, None] * theta + x_p * v0_p                      # (P, n)
+    z_h = (torch.matmul(E, z0_p[:, :, None])[..., 0]
+           + h * torch.matmul(P1, b_p[:, :, None])[..., 0])
+    return z_h.T
+
+
+def _drift(drift_scheme: str):
+    """the drift half-step of ``drift_scheme``: 'rk4' or 'expm'."""
+    if drift_scheme not in ("rk4", "expm"):
+        raise NotImplementedError(f"drift_scheme={drift_scheme}")
+    return drift_ode_expm if drift_scheme == "expm" else drift_ode_rk4
+
+
 def diffus_sde_exact(y0: torch.Tensor, weights: torch.Tensor, volvol, h,
                      z_rand: torch.Tensor) -> torch.Tensor:
     """exact log-normal diffusion step on the weighted sum, with the increment
@@ -62,13 +108,15 @@ def diffus_sde_exact(y0: torch.Tensor, weights: torch.Tensor, volvol, h,
 def strang_step(nodes: torch.Tensor, weights: torch.Tensor, v0: torch.Tensor,
                 theta, kappa1, kappa2, rho, volvol,
                 log_s: torch.Tensor, v: torch.Tensor, y: torch.Tensor, h,
-                z0: torch.Tensor, z1: torch.Tensor
+                z0: torch.Tensor, z1: torch.Tensor, drift_scheme: str = "rk4"
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """one full step D(h/2) o S(h) o D(h/2) and the log-spot reconstruction;
-    returns (vol_h, y_h, log_spot_h)."""
-    d_inn = drift_ode_rk4(nodes, v0, theta, kappa1, kappa2, v, weights, 0.5 * h)
+    returns (vol_h, y_h, log_spot_h).  ``drift_scheme``: 'rk4' (the
+    production half-step) or 'expm' (:func:`drift_ode_expm`)."""
+    drift = _drift(drift_scheme)
+    d_inn = drift(nodes, v0, theta, kappa1, kappa2, v, weights, 0.5 * h)
     s_inn = diffus_sde_exact(d_inn, weights, volvol, h, z0)
-    vol_h = drift_ode_rk4(nodes, v0, theta, kappa1, kappa2, s_inn, weights, 0.5 * h)
+    vol_h = drift(nodes, v0, theta, kappa1, kappa2, s_inn, weights, 0.5 * h)
 
     w_vol_h = torch.sum(weights * vol_h, dim=0)
     bad = torch.isnan(w_vol_h) | (w_vol_h <= 0.0)
@@ -110,7 +158,8 @@ def _lifted_panels(nodes, weights, sigma0, nb_path: int, dtype, device):
     return nodes_t, weights_t, v0
 
 
-def _strang_steps(nodes_t, weights_t, v0, theta, kappa1, kappa2, rho, volvol, h, normals):
+def _strang_steps(nodes_t, weights_t, v0, theta, kappa1, kappa2, rho, volvol, h, normals,
+                  drift_scheme: str = "rk4"):
     """Strang steps from (v0, 0, 0) over ``normals``, an iterable of the
     steps' (z0, z1) panels; returns (log-spot, factor vols, integrated
     variance)."""
@@ -119,7 +168,7 @@ def _strang_steps(nodes_t, weights_t, v0, theta, kappa1, kappa2, rho, volvol, h,
     log_s = torch.zeros_like(y)
     for z0, z1 in normals:
         v, y, log_s = strang_step(nodes_t, weights_t, v0, theta, kappa1, kappa2, rho, volvol,
-                                  log_s, v, y, h, z0, z1)
+                                  log_s, v, y, h, z0, z1, drift_scheme=drift_scheme)
     return log_s, v, y
 
 
@@ -135,7 +184,8 @@ def log_spot_full_combined(nodes: np.ndarray,
                            nb_path: int,
                            gen: torch.Generator,
                            nb_steps_per_year: int = 360,
-                           dtype: torch.dtype = torch.float64
+                           dtype: torch.dtype = torch.float64,
+                           drift_scheme: str = "rk4"
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """simulate (log-spot, factor vols, integrated variance) to the horizon,
     one eager Strang step at a time on the generator's device, with each
@@ -143,7 +193,8 @@ def log_spot_full_combined(nodes: np.ndarray,
     nb_steps, dt, _ = set_time_grid(ttm=ttm, nb_steps_per_year=nb_steps_per_year)
     nodes_t, weights_t, v0 = _lifted_panels(nodes, weights, sigma0, nb_path, dtype, gen.device)
     normals = (tuple(step_normals(gen, (2, nb_path), dtype=dtype)) for _ in range(nb_steps))
-    return _strang_steps(nodes_t, weights_t, v0, theta, kappa1, kappa2, rho, volvol, dt, normals)
+    return _strang_steps(nodes_t, weights_t, v0, theta, kappa1, kappa2, rho, volvol, dt, normals,
+                         drift_scheme=drift_scheme)
 
 
 def log_spot_full_combined_fixed(nodes: np.ndarray,
@@ -158,7 +209,8 @@ def log_spot_full_combined_fixed(nodes: np.ndarray,
                                  Z0,
                                  Z1,
                                  dtype: torch.dtype = torch.float64,
-                                 device="cuda"
+                                 device="cuda",
+                                 drift_scheme: str = "rk4"
                                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Strang steps over pre-drawn (steps, paths) normal blocks ``Z0``,
     ``Z1`` (numpy arrays or tensors, moved to ``device``) at the step of
@@ -168,7 +220,7 @@ def log_spot_full_combined_fixed(nodes: np.ndarray,
     h = float(timegrid[1] - timegrid[0])
     nodes_t, weights_t, v0 = _lifted_panels(nodes, weights, sigma0, z0.shape[1], dtype, device)
     return _strang_steps(nodes_t, weights_t, v0, theta, kappa1, kappa2, rho, volvol, h,
-                         zip(z0, z1))
+                         zip(z0, z1), drift_scheme=drift_scheme)
 
 
 def rough_logsv_mc_chain_pricer(ttms: np.ndarray,
@@ -190,7 +242,8 @@ def rough_logsv_mc_chain_pricer(ttms: np.ndarray,
                                 seed: Optional[int] = None,
                                 dtype: torch.dtype = torch.float64,
                                 engine: str = "scan",
-                                device="cuda"
+                                device="cuda",
+                                drift_scheme: str = "rk4"
                                 ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
     """rough chain MC: (beta, volvol) is reparametrized to (vartheta,
     rho = beta / vartheta), and every slice restarts from t = 0 on the same
@@ -202,12 +255,16 @@ def rough_logsv_mc_chain_pricer(ttms: np.ndarray,
     the CPU), every slice with the same base seed: one launch per maturity,
     simulating the sum of the slice horizons.  ``engine='scan'`` (default)
     runs the float64 eager engine with a generator reseeded by ``seed`` for
-    each slice.
+    each slice, with the drift half-step of ``drift_scheme`` ('rk4' or
+    'expm'); the kernel's drift is RK4 only.
     """
     if engine == "pallas":
         engine = "cuda"
     if engine not in ("scan", "cuda"):
         raise NotImplementedError(f"engine={engine}")
+    if engine == "cuda" and drift_scheme != "rk4":
+        raise NotImplementedError("drift_scheme='expm' runs on engine='scan' only: the kernel's "
+                                  "drift is the RK4 half-step")
     device = torch.device(device)
     vartheta = float(np.sqrt(beta ** 2 + volvol ** 2))
     rho = float(beta / vartheta)
@@ -228,7 +285,7 @@ def rough_logsv_mc_chain_pricer(ttms: np.ndarray,
         else:
             log_s, v, y = log_spot_full_combined(
                 nb_path=nb_path, gen=generator_from_seed(seed, device=device), dtype=dtype,
-                **kw)
+                drift_scheme=drift_scheme, **kw)
             sigma_terminal = torch.sum(weights_t * v, dim=0)
         prices, stds = compute_mc_vars_payoff(
             x0=log_s, sigma0=sigma_terminal, qvar0=y, ttm=ttm, forward=forward,

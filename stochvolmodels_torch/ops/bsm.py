@@ -439,19 +439,47 @@ def _broadcast_inputs(forward, ttm, strike, given_price, discfactor, optiontype)
     return tuple(b(a) for a in (given_price, forward, strike, ttm, discfactor)) + (sgn,)
 
 
+def _implicit_newton(vol, given_price, forward, strike, ttm, discfactor, sgn) -> torch.Tensor:
+    """two Newton steps on P(vol) = price from the solved ``vol``, with the
+    exact vega of the erfcc price; NaN where ``vol`` is NaN, and no step
+    where |vega| < 1e-12 x forward.  The value is ``vol`` to rounding; its
+    first and second derivatives in every input are those of the implicit
+    function (a Newton step's derivative in its start vanishes at the root,
+    so two steps carry both orders), which is what nested ``torch.func.jvp``
+    needs: torch does not differentiate a custom Function's ``jvp`` rule
+    again, as JAX differentiates its ``custom_jvp`` rule."""
+    nan = torch.isnan(vol)
+    v = torch.where(nan, 1.0, vol)
+    floor = 1e-12 * forward
+    for _ in range(2):
+        s_ttm = v * torch.sqrt(ttm)
+        d1 = (torch.log(forward / strike) + 0.5 * s_ttm * s_ttm) / s_ttm
+        price = discfactor * sgn * (forward * ncdf(sgn * d1) - strike * ncdf(sgn * (d1 - s_ttm)))
+        vega = _price_partials(forward, strike, ttm, discfactor, v, sgn)[4]
+        flat = torch.abs(vega) < floor
+        v = v - torch.where(flat, 0.0, (price - given_price) / torch.where(flat, 1.0, vega))
+    return torch.where(nan, torch.nan, v)
+
+
 def infer_bsm_implied_vol_fast(forward, ttm, strike, given_price, discfactor=1.0,
                                optiontype='C', nb_bisect: int = 24,
-                               nb_newton: int = 4) -> torch.Tensor:
+                               nb_newton: int = 4, higher_order: bool = False) -> torch.Tensor:
     """fast implied vol: a 24-step bisection bracket and a 4-step Newton polish.
 
     ~7x fewer sequential stages than :func:`infer_bsm_implied_vol`, for
     calibration objectives; NaN where the price is not bracketed.  Its
     derivatives come from the implicit function theorem (1/vega), in forward
     and reverse mode, so ``torch.func.jacfwd``, ``vmap`` and ``backward`` go
-    through it.
+    through it.  ``higher_order=True`` (for nested forward-mode, e.g. gamma
+    in vol space) takes the derivatives of :func:`_implicit_newton` from the
+    solved vol instead, which are exact to second order.
     """
     given_price, forward, strike, ttm, discfactor, sgn = _broadcast_inputs(
         forward, ttm, strike, given_price, discfactor, optiontype)
+    if higher_order:
+        vol = _fast_iv_impl(given_price, forward, strike, ttm, discfactor, sgn,
+                            int(nb_bisect), int(nb_newton))
+        return _implicit_newton(vol, given_price, forward, strike, ttm, discfactor, sgn)
     return _FastIVCore.apply(given_price, forward, strike, ttm, discfactor, sgn,
                              int(nb_bisect), int(nb_newton))
 

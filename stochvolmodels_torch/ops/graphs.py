@@ -8,13 +8,20 @@ bisection (``ops/bsm.py``, one graph per panel shape), the whole
 Levenberg-Marquardt fit of LogSV and of Heston
 (``models/logsv/fast_calibration.py``, ``models/heston.py``), the Hawkes
 chain reprice, plain or risk-premia, and the Hawkes LM's initial state and
-its one iteration, replayed once per iteration (``models/hawkes_jd.py``);
-each is one graph per chain shape and static configuration.
+its one iteration, replayed once per iteration (``models/hawkes_jd.py``),
+the LogSV Q_VAR reprice, densities and QMC slices and the Heston QMC slices
+(``models/logsv/pricer.py``, ``models/heston.py``), each chain-greeks
+program (``models/greeks.py``) and the exponential-Euler affine solve
+(``models/logsv/affine.py``); each is one graph per chain shape and static
+configuration.
 
 A graph replays the exact kernels that the eager call launches, on the same
 inputs, so its outputs equal the eager call's bit for bit.  There is no
-fallback: a capture that fails raises, and a call made inside a
-``torch.func`` transform or inside another capture raises.  ``eager()``
+fallback: a capture that fails raises, and ``run_captured`` called inside a
+``torch.func`` transform or inside another capture raises.  ``use_graph``
+says False there, so the model code runs such a call eagerly and the
+enclosing program (the greeks' jvps, or a graph that holds the whole
+program) takes its kernels.  ``eager()``
 switches capture off for a block, explicitly, so that a caller can time the
 eager call or hold the two against each other.  On the CPU nothing is
 captured.
@@ -49,8 +56,12 @@ def eager():
 
 def use_graph(tensor: torch.Tensor) -> bool:
     """True where a call on this tensor's device runs through a graph:
-    capture is on and the tensor lies on a CUDA device."""
-    return _capture_enabled and tensor.is_cuda
+    capture is on, the tensor lies on a CUDA device, and the call is not
+    made inside a ``torch.func`` transform or inside another capture (the
+    enclosing program, or its graph, holds the call's kernels then)."""
+    return (_capture_enabled and tensor.is_cuda
+            and torch._C._functorch.maybe_current_level() is None
+            and not torch.cuda.is_current_stream_capturing())
 
 
 class _Captured:

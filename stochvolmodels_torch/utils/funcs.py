@@ -1,15 +1,16 @@
 """
 Shared numerical utilities: time grids, timing, ragged-array padding.
 
-PyTorch-package counterpart of ``stochvolmodels_tpu/utils/funcs.py``, without
-the pandas helpers.
+PyTorch-package counterpart of ``stochvolmodels_tpu/utils/funcs.py``.  Where
+the JAX package returns a pandas Series, the port returns a
+:class:`SeriesLike` (the port imports no pandas).
 """
 from __future__ import annotations
 
 import functools
 import time
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -32,6 +33,12 @@ def set_time_grid(ttm: float, nb_steps_per_year: int = 360) -> Tuple[int, float,
     return nb_steps, dt, grid_t
 
 
+def set_seed(value: int) -> None:
+    """seed numpy's global RNG (the reference's seeding; the fixed-randoms
+    pricers draw their blocks from it, the eager engines take ``seed=``)."""
+    np.random.seed(value)
+
+
 def timer(func):
     """decorator printing the wall-clock runtime of the wrapped call."""
     @functools.wraps(func)
@@ -42,6 +49,30 @@ def timer(func):
         print(f"Finished {func.__name__!r} in {end_time - start_time:.4f} secs")
         return value
     return wrapper_timer
+
+
+def update_kwargs(kwargs: Dict[Any, Any],
+                  new_kwargs: Optional[Dict[Any, Any]]
+                  ) -> Dict[Any, Any]:
+    """merge two kwargs dicts without mutating the first."""
+    local_kwargs = kwargs.copy()
+    if new_kwargs:
+        local_kwargs.update(new_kwargs)
+    return local_kwargs
+
+
+def compute_histogram_data(data: np.ndarray,
+                           x_grid: np.ndarray,
+                           name: str = 'Histogram'
+                           ) -> "SeriesLike":
+    """histogram of simulated values on a fixed grid, as frequencies indexed
+    by the bin edges (the first entry is ``x_grid[0]`` over the count, as in
+    the reference)."""
+    hist_data, bin_edges = np.histogram(a=np.asarray(data), bins=len(x_grid) - 1,
+                                        range=(x_grid[0], x_grid[-1]))
+    hist_data = np.append(np.array(x_grid[0]), hist_data)
+    hist_data = hist_data / len(data)
+    return SeriesLike(values=hist_data, index=bin_edges, name=name)
 
 
 def find_nearest(a: np.ndarray,
@@ -89,6 +120,7 @@ class SeriesLike:
     where the JAX package returns a ``pd.Series``."""
     values: np.ndarray
     index: np.ndarray
+    name: Optional[str] = None
 
     def __post_init__(self):
         self.values = np.asarray(self.values, dtype=float)

@@ -174,3 +174,51 @@ def test_captured_hawkes_lm_iteration_equals_eager(cuda_device):  # noqa: F811
     assert graphs.REPLAYS["hawkes_lm_step"] == before + 2
     assert captured[1] == eager[1] and captured[0] == eager[0]
     assert hawkes_jd.HAWKES_LM_LOWER[0] <= captured[0].sigma <= hawkes_jd.HAWKES_LM_UPPER[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("in_vols", [False, True])
+def test_captured_greeks_program_equals_eager(cuda_device, in_vols):  # noqa: F811
+    _, ct = btc_chains()
+    two = svt.OptionChain.get_slices_as_chain(ct, ids=ct.ids[:2])
+    pricer = svt.LogSVPricer(device=cuda_device)
+    names = ("delta", "gamma", "vega", "theta_calendar")
+    with graphs.eager():
+        eager = pricer.compute_chain_greeks(two, svt.LOGSV_BTC_PARAMS, greeks=names,
+                                            in_vols=in_vols)
+    before = graphs.REPLAYS["greeks"]
+    captured = pricer.compute_chain_greeks(two, svt.LOGSV_BTC_PARAMS, greeks=names,
+                                           in_vols=in_vols)
+    assert graphs.REPLAYS["greeks"] == before + 3   # the greeks and theta's two programs
+    assert sorted(captured) == sorted(eager)
+    for key in eager:
+        for a, b in zip(captured[key], eager[key]):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_captured_analytic_ode_and_heston_qmc_equal_eager(cuda_device):  # noqa: F811
+    from stochvolmodels_torch.models.logsv import affine
+    from stochvolmodels_torch.ops import mgf
+
+    P = svt.LOGSV_BTC_PARAMS
+    phi = mgf.get_phi_grid(vol_scaler=0.2, device=cuda_device)
+    kw = dict(ttm=0.1, phi_grid=phi, psi_grid=torch.zeros_like(phi), theta_grid=torch.zeros_like(phi),
+              sigma0=P.sigma0, theta=P.theta, kappa1=P.kappa1, kappa2=P.kappa2, beta=P.beta,
+              volvol=P.volvol, is_analytic=True, vol_scaler=0.2)
+    with graphs.eager():
+        eager = affine.compute_logsv_a_mgf_grid(**kw)[1]
+    before = graphs.REPLAYS["logsv_analytic_ode"]
+    captured = affine.compute_logsv_a_mgf_grid(**kw)[1]
+    assert graphs.REPLAYS["logsv_analytic_ode"] == before + 1
+    assert torch.equal(captured, eager)
+    _, ct = btc_chains()
+    pricer = svt.HestonPricer(device=cuda_device)
+    qmc = dict(engine="qmc", nb_path=1 << 12, qmc_replicates=4, seed=3)
+    with graphs.eager():
+        eager = pricer.model_mc_price_chain(ct, svt.BTC_HESTON_PARAMS, **qmc)
+    before = graphs.REPLAYS["heston_qmc"]
+    captured = pricer.model_mc_price_chain(ct, svt.BTC_HESTON_PARAMS, **qmc)
+    assert graphs.REPLAYS["heston_qmc"] == before + len(ct.ttms)
+    for a, b in zip(captured[0] + captured[1], eager[0] + eager[1]):
+        np.testing.assert_array_equal(a, b)

@@ -222,11 +222,17 @@ def test_params_from_to_dict_and_to_array():
 
 
 def test_unported_options_raise():
+    """the refusals of the JAX package's Heston MC: an unknown engine, and
+    antithetic draws off the 'scan' engine (the kernel draws its own
+    normals; Sobol points are stratified already)."""
     _, ct = btc_chains()
     _, pt = heston_pair(**PARAM_SETS["btc"])
+    pricer = svt.HestonPricer(device="cpu")
     with pytest.raises(NotImplementedError):
-        svt.HestonPricer(device="cpu").model_mc_price_chain(ct, pt, engine="qmc", nb_path=256)
+        pricer.model_mc_price_chain(ct, pt, engine="mlmc", nb_path=256)
     with pytest.raises(NotImplementedError):
-        svt.HestonPricer(device="cpu").model_mc_price_chain(ct, pt, nb_path=256, antithetic=True)
+        pricer.model_mc_price_chain(ct, pt, nb_path=256, antithetic=True, engine="cuda")
     with pytest.raises(NotImplementedError):
-        svt.HestonPricer(device="cpu").price_chain(ct, pt, variable_type=svt.VariableType.Q_VAR)
+        pricer.model_mc_price_chain(ct, pt, nb_path=256, antithetic=True, engine="qmc")
+    with pytest.raises(NotImplementedError):
+        pricer.price_chain(ct, pt, variable_type=svt.VariableType.SIGMA)

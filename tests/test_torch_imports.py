@@ -94,3 +94,20 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     assert len(sources) >= 20
     offenders = [str(p.relative_to(REPO)) for p in sources if pattern.search(p.read_text())]
     assert not offenders, offenders
+
+
+def test_chains_dir_lies_inside_the_port():
+    """the port loads its chains from its own package data, never from the
+    JAX package's directory."""
+    from stochvolmodels_torch.data.sample_chains import CHAINS_DIR
+    assert CHAINS_DIR.resolve().is_relative_to(PORT.resolve()), CHAINS_DIR
+    assert sorted(p.name for p in CHAINS_DIR.glob("*.npz"))
+
+
+def test_bundled_chains_equal_the_jax_packages_byte_for_byte():
+    from stochvolmodels_torch.data.sample_chains import CHAINS_DIR
+    jax_dir = REPO / "stochvolmodels_tpu" / "data" / "chains"
+    ours = sorted(p.name for p in CHAINS_DIR.glob("*.npz"))
+    assert ours == sorted(p.name for p in jax_dir.glob("*.npz"))
+    for name in ours:
+        assert (CHAINS_DIR / name).read_bytes() == (jax_dir / name).read_bytes(), name
