@@ -53,8 +53,20 @@ MC greeks against a fixed-seed difference; the exponential-Euler affine
 solve (one graph a slice) against the CPU and the RK4; Heston QMC,
 antithetic and Q_VAR; and the rough chain through rough_mc with the
 Gaussian rule's 2, 4 and 5 nodes (each instance held against its plain
-version, with its ms), and one 'expm'-drift scan chain against the RK4's.
-Each phase prints one line, and a ``[phase-walls]`` line their walls; any
+version, with its ms, roofline bound, share of bound and SASS issue
+floor), and one 'expm'-drift scan chain against the RK4's.  Then the
+terminal models (Bachelier prices, deltas, vegas and implied vols, the
+incomplete beta, Student-t prices and implied vols and GMM prices, each on
+the card against the CPU; the normal bisection's graph against its eager
+call; one GMM and one Student-t per-slice SLSQP fit of the first two
+slices) and the LogSV and Heston LM sweeps of 64 perturbed BTC chains (one
+CUDA graph each, chains/s, peak memory, device busy; the first, middle and
+last chain against their single-chain fits; captured against eager bit for
+bit on 4 chains).  The greeks, the terminal models and the sweeps run in a
+side process started after the kernel timings (the rough rules run before
+it), beside the calibration and graph phases: all are bound by host launch
+work; the walls of the phases that overlap include the other process's
+load on the card.  Each phase prints one line, and a ``[phase-walls]`` line their walls; any
 failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 it exits 1 and prints no result.
@@ -139,6 +151,25 @@ MC_GREEKS_NB_PATH, ROUGH_RULE_NODES, EXPM_NB_PATH = 100000, (2, 4, 5), 1 << 16
 # 2 nodes on [0, 1], 720 steps/yr): at H = 0.1 the top node (~300/yr) leaves both schemes ~10%
 # from the truth and from each other, so there they are not comparable
 EXPM_LIFT, EXPM_STEPS_PER_YEAR = (0.3, 2, 1.0), 720
+# the terminal models on the BTC layout: a normal-vol panel (forward 1, strikes 1 + (K / F - 1) /
+# 20, the chain's ttms, normal vols 0.06 x mid vol / the largest mid vol, inside the [0.001, 0.1]
+# bracket); Student-t prices and implied vols at vol 0.8, nu 4.5 on the first slice (each
+# bisection step implies the drift by 50 Newton steps: ~200k eager kernels a slice); the GMM of
+# tests/test_torch_terminal_models.py; the incomplete beta on the Student-t callers' domain
+# (a = nu / 2 in [1.005, 10], b = 1/2, x up to 1 - 1e-12); the per-slice SLSQP fits on the
+# first TERMINAL_FIT_SLICES slices, each warm-started from the one before
+TDIST_VOL, TDIST_NU, TERMINAL_FIT_SLICES = 0.8, 4.5, 2
+GMM_PARAMS = dict(gmm_weights=np.array([0.2, 0.5, 0.3]), gmm_mus=np.array([-0.8, 0.1, 0.4]),
+                  gmm_vols=np.array([1.1, 0.6, 0.8]), ttm=0.1)
+# the LM sweep: SWEEP_CHAINS perturbed BTC chains (bid and ask ivols x [0.90, 1.10]) from
+# tests/test_parallel.py's start points at the JAX defaults (16 iterations, LogSV at 360 RK4
+# steps/yr); the first, middle and last chain against their single-chain fits (1e-6 relative,
+# the JAX test's rtol); captured against eager bit for bit at SWEEP_CHECK_CHAINS chains and
+# SWEEP_CHECK_ITERS iterations (an eager LM iteration is seconds of host launches)
+SWEEP_CHAINS, SWEEP_ITERS, SWEEP_YEAR_STEPS = 64, 16, 360
+SWEEP_CHECK_CHAINS, SWEEP_CHECK_ITERS = 4, 2
+SWEEP_LOGSV_P0 = dict(sigma0=0.8, theta=1.0, kappa1=2.21, kappa2=2.21, beta=0.15, volvol=1.85)
+SWEEP_HESTON_P0 = dict(v0=0.8 ** 2, theta=1.3 ** 2, kappa=4.0, volvol=1.5, rho=0.1)
 
 
 def _check(ok: bool, what: str) -> None:
@@ -1194,6 +1225,7 @@ def _rough_rules_phase(svt, cuda_mc, mc_variants, chain) -> dict:
     instance held against its plain version at 2^20 x 91, its ms and the
     plain version's at 2^20 x 361; then one 'expm'-drift scan chain against
     the 'rk4' one.  Returns {N: (kernel ms, plain ms, max abs err)}."""
+    from stochvolmodels_torch.ops import _build
     from stochvolmodels_torch.utils.funcs import set_time_grid
 
     smi = _smi_name_and_power()
@@ -1203,7 +1235,10 @@ def _rough_rules_phase(svt, cuda_mc, mc_variants, chain) -> dict:
     vartheta = float(np.hypot(P.beta, P.volvol))
     main_steps = set_time_grid(MAIN_TTM, MC_STEPS_PER_YEAR)[0]
     tp_steps = set_time_grid(THROUGHPUT_TTM, MC_STEPS_PER_YEAR)[0]
-    out, launched = {}, {}
+    out, launched, roof = {}, {}, {}
+    sass = _load_script("scripts/sass_step_loops.py")
+    loops = sass.loop_lengths(sass.disassemble(_build._lib_path("rough_mc")))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for n in ROUGH_RULE_NODES:
         nodes, weights = svt.gaussian_rule(ROUGH_H, n, max_ttm)
         _check(len(nodes) == n and np.all(weights > 0.0), f"gaussian_rule gave {nodes}, {weights}")
@@ -1230,13 +1265,24 @@ def _rough_rules_phase(svt, cuda_mc, mc_variants, chain) -> dict:
         run_k()
         k_ms = statistics.mean([_event_ms(run_k, 10), _event_ms(run_k, 10)])
         p_ms = _event_ms(run_p, 1)
+        clock = _clock_under_load(f"rough_mc (N={n})", run_k, k_ms)
+        bound, _ = _bound_ms("rough_mc", cuda_mc.ROUGH_OPS_PER_STEP[n], NB_PATH, tp_steps)
+        _, common, _ = loops[str(n)]
+        floor = (float("nan") if clock is None else 1e3 * common * (NB_PATH // 32) * tp_steps
+                 / (sms * ISSUE_PER_SM_CLOCK * clock * 1e6))
         out[n] = (k_ms, p_ms, err)
+        roof[n] = (sum(cuda_mc.ROUGH_OPS_PER_STEP[n]), bound, common, floor, clock)
     _reset_counts(cuda_mc, mc_variants)
     print(f"[rough-rules] rough chain through rough_mc at N = {list(ROUGH_RULE_NODES)} "
           f"(gaussian_rule, H = {ROUGH_H}), {NB_PATH} paths: launches per chain call "
           f"{launched}; kernel / plain ms at {NB_PATH} x {tp_steps} steps "
           + ", ".join(f"N={n} {k:.3f} / {p:.1f} ({NB_PATH * tp_steps / k * 1e3:.4e} path-steps/s)"
-                      for n, (k, p, _) in out.items()) + f" | {smi}", flush=True)
+                      for n, (k, p, _) in out.items())
+          + "; roofline (ops a path-step, bound ms, share of bound, SASS common path, issue "
+          "floor ms and its share of the kernel time, SM clock MHz) "
+          + ", ".join(f"N={n} {ops} ops, bound {b:.4f} ms, {b / out[n][0]:.1%}, SASS {c}, "
+                      f"floor {f:.4f} ms ({f / out[n][0]:.1%}) at {mhz}"
+                      for n, (ops, b, c, f, mhz) in roof.items()) + f" | {smi}", flush=True)
     nodes, weights = svt.european_rule(*EXPM_LIFT)
     scan_kw = dict(ttms=chain.ttms, forwards=chain.forwards, discfactors=chain.discfactors,
                    strikes_ttms=chain.strikes_ttms, optiontypes_ttms=chain.optiontypes_ttms,
@@ -1260,6 +1306,252 @@ def _rough_rules_phase(svt, cuda_mc, mc_variants, chain) -> dict:
           f"same seed: max |dprice| / (4 stderr) {worst:.3f}; walls rk4 "
           f"{walls['rk4']:.2f} s, expm {walls['expm']:.2f} s | {smi}", flush=True)
     return out
+
+
+def _rel_gap(gpu, cpu) -> float:
+    """max |card - CPU| / max |CPU| over the finite entries (NaN where NaN)."""
+    gpu, cpu = (np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x, dtype=float)
+                for x in (gpu, cpu))
+    _check(np.array_equal(np.isnan(gpu), np.isnan(cpu)), "card and CPU NaN patterns differ")
+    ok = ~np.isnan(cpu)
+    return float(np.max(np.abs(gpu[ok] - cpu[ok])) / max(np.max(np.abs(cpu[ok])), 1e-300))
+
+
+def _timed_s(fn):
+    """(output, wall s) of one call that ends on the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _terminal_models_phase(svt, graphs, chain) -> None:
+    """Bachelier, the incomplete beta, Student-t and GMM on the BTC chain,
+    each on the card against the CPU; the Bachelier bisection's graph
+    against its eager call; one GMM and one Student-t per-slice SLSQP fit of
+    the first two slices."""
+    from stochvolmodels_torch.ops import bachelier, tdist
+
+    smi = _smi_name_and_power()
+    devices = {"card": torch.device(DEVICE), "cpu": torch.device("cpu")}
+    strikes, mask = svt.npad([1.0 + (k / f - 1.0) / 20.0
+                              for k, f in zip(chain.strikes_ttms, chain.forwards)], pad_value=1.0)
+    mids, _ = svt.npad(chain.get_mid_vols(), pad_value=0.5)
+    types, _ = svt.npad([svt.encode_optiontypes(t) for t in chain.optiontypes_ttms], pad_value=1)
+    normal_vols = 0.06 * mids / np.max(mids)
+    ttms = chain.ttms[:, None]
+    gaps, out = {}, {}
+    for label, dev in devices.items():
+        f64 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), device=dev)
+        one, k, t, v = f64(np.ones_like(strikes)), f64(strikes), f64(ttms), f64(normal_vols)
+        codes = torch.as_tensor(types.astype(np.int8), device=dev)
+        price = bachelier.compute_normal_price(one, k, t, v, optiontype=codes)
+        out[label] = dict(
+            price=price, delta=bachelier.compute_normal_delta(t, one, k, v, codes),
+            vega=bachelier.compute_normal_slice_vegas(t, one, k, v),
+            iv=bachelier.infer_normal_implied_vol(one, t, k, price, optiontype=codes),
+            iv_fast=bachelier.infer_normal_implied_vol_fast(one, t, k, price, optiontype=codes))
+    for name in out["cpu"]:
+        gaps[f"normal {name}"] = _rel_gap(out["card"][name], out["cpu"][name])
+    # the round trip where the price moves with the vol: |F - K| < 3 sdev (further out the
+    # price sits at the intrinsic value to rounding)
+    live = mask & (np.abs(1.0 - strikes) < 3.0 * normal_vols * np.sqrt(ttms))
+    iv = out["card"]["iv"].cpu().numpy()
+    solved = ~np.isnan(iv) & live
+    _check(np.sum(live) >= 0.5 * np.sum(mask) and np.mean(solved[live]) > 0.9,
+           f"normal iv: {np.sum(solved)} of {np.sum(live)} solved")
+    exact_err = float(np.max(np.abs(iv[solved] - normal_vols[solved])))
+    fast = out["card"]["iv_fast"].cpu().numpy()
+    fast_err = float(np.max(np.abs(fast[live] - normal_vols[live])))
+    _check(exact_err < 1e-8 and fast_err < 1e-8, f"normal iv round trips {exact_err}, {fast_err}")
+    f64 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), device=DEVICE)
+    args = (f64(np.ones_like(strikes)), f64(ttms), f64(strikes), out["card"]["price"])
+    codes = torch.as_tensor(types.astype(np.int8), device=DEVICE)
+    replays = graphs.REPLAYS["normal_bisection"]
+    captured, captured_s = _timed_s(lambda: bachelier.infer_normal_implied_vol(
+        *args, optiontype=codes))
+    _check(graphs.REPLAYS["normal_bisection"] == replays + 1, "the normal bisection's graph "
+                                                              "did not replay")
+    with graphs.eager():
+        eager, eager_s = _timed_s(lambda: bachelier.infer_normal_implied_vol(
+            *args, optiontype=codes))
+    _check(torch.equal(torch.nan_to_num(captured), torch.nan_to_num(eager)),
+           "the captured normal bisection differs from the eager one")
+    # the incomplete beta on the Student-t callers' domain, card against CPU
+    a, x = np.meshgrid(np.linspace(1.005, 10.0, 25),
+                       np.concatenate([np.linspace(1e-6, 1.0 - 1e-6, 97), [1.0 - 1e-12]]))
+    beta = {label: tdist.betainc(*(torch.as_tensor(g.ravel(), device=dev)
+                                   for g in (a, np.full_like(a, 0.5), x)))
+            for label, dev in devices.items()}
+    beta_gap = float(torch.max(torch.abs(beta["card"].cpu() - beta["cpu"])))
+    _check(beta_gap < 1e-13, f"betainc card vs CPU {beta_gap}")
+    # Student-t prices and the implied vol round trip on the first slice
+    n = 1
+    t_out, t_walls = {}, {}
+    for label, dev in devices.items():
+        f64 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), device=dev)
+        spot = f64((chain.forwards * chain.discfactors)[:n, None])
+        k, t = f64(svt.npad(chain.strikes_ttms, pad_value=np.nan)[0][:n]), f64(ttms[:n])
+        k = torch.where(torch.isnan(k), spot, k)
+        codes = torch.as_tensor(types[:n].astype(np.int8), device=dev)
+        price = tdist.compute_vanilla_price_tdist(spot, k, t, TDIST_VOL, TDIST_NU, codes)
+        iv, t_walls[label] = _timed_s(lambda: tdist.infer_implied_vol_tdist(
+            spot, t, k, price, optiontype=codes, nu=TDIST_NU))
+        t_out[label] = dict(price=price, iv=iv)
+    for name in t_out["cpu"]:
+        gaps[f"student-t {name}"] = _rel_gap(t_out["card"][name], t_out["cpu"][name])
+    t_iv_err = float(torch.max(torch.abs(t_out["card"]["iv"] - TDIST_VOL)))
+    _check(t_iv_err < 1e-8, f"student-t iv round trip {t_iv_err}")
+    gmm = {label: svt.GmmPricer(device=dev).price_chain(chain, svt.GmmParams(**GMM_PARAMS))
+           for label, dev in devices.items()}
+    gaps["gmm prices"] = max(_rel_gap(g, c) for g, c in zip(gmm["card"], gmm["cpu"]))
+    _check(max(gaps.values()) < 1e-10, f"card against CPU: {gaps}")
+    print(f"[terminal-models] BTC layout ({chain.ttms.size} x {strikes.shape[1]} panel), card "
+          f"against CPU, max relative gap: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+          + f"; betainc (a in [1.005, 10], b 0.5, x to 1 - 1e-12) max abs gap {beta_gap:.2e}; "
+          f"normal iv round trip within 3 sdev of the money exact {exact_err:.2e} ({np.sum(solved)} "
+          f"of {np.sum(live)} quotes), fast {fast_err:.2e}; normal bisection captured {1e3 * captured_s:.2f} ms "
+          f"equal bit for bit to eager {1e3 * eager_s:.2f} ms; Student-t iv round trip "
+          f"{t_iv_err:.2e}, wall card {t_walls['card']:.2f} s, CPU {t_walls['cpu']:.2f} s "
+          f"| {smi}", flush=True)
+    ids = list(chain.ids[:TERMINAL_FIT_SLICES])
+    # the largest mean |ivol - mid| of a fit: the mixture fits the BTC smiles to ~0.001; the
+    # Student-t law, one vol and one nu a slice, to 0.06-0.08, as the JAX package's fit does
+    for name, pricer, max_err in (("GMM", svt.GmmPricer(device=DEVICE), 0.01),
+                                  ("Student-t", svt.TdistPricer(device=DEVICE), 0.1)):
+        params0, parts = None, []
+        for sid in ids:
+            one = svt.OptionChain.get_slices_as_chain(chain, ids=[sid])
+            params0, wall = _timed_s(lambda: pricer.calibrate_model_params_to_chain_slice(
+                one, params0=params0))
+            res = pricer.calibration_result
+            err = _fit_error(pricer, one, params0)
+            _check(np.isfinite(res.fun) and err < max_err, f"{name} fit of {sid}: error {err}")
+            parts.append(f"{sid} {wall:.2f} s, nfev {res.nfev}, nit {res.nit}, objective "
+                         f"{res.fun:.4e}, mean |ivol - mid| {err:.5f}")
+        print(f"[terminal-models] {name} per-slice SLSQP (scipy on the host, torch.autograd "
+              f"gradient), warm-started: " + "; ".join(parts) + f" | {smi}", flush=True)
+
+
+def _sweep_phase(svt, graphs, chain) -> None:
+    """the LogSV and Heston LM sweeps of SWEEP_CHAINS perturbed BTC chains,
+    each one CUDA graph: capture and warm walls, chains/s, peak memory,
+    device busy and idle share; the first, middle and last chain against
+    their single-chain fits; captured against eager bit for bit on a small
+    sweep."""
+    import dataclasses
+
+    from stochvolmodels_torch.parallel import sweep
+
+    smi = _smi_name_and_power()
+    scales = np.linspace(0.90, 1.10, SWEEP_CHAINS)
+    chains = [dataclasses.replace(chain, bid_ivs=[s * iv for iv in chain.bid_ivs],
+                                  ask_ivs=[s * iv for iv in chain.ask_ivs]) for s in scales]
+    logsv_p0, heston_p0 = svt.LogSvParams(**SWEEP_LOGSV_P0), svt.HestonParams(**SWEEP_HESTON_P0)
+    models = {
+        "LogSV": (lambda cs, iters=SWEEP_ITERS: sweep.calibrate_logsv_lm_sweep(
+                      cs, logsv_p0, nb_iters=iters, year_steps=SWEEP_YEAR_STEPS, device=DEVICE),
+                  lambda c: svt.calibrate_logsv_lm_on_device(
+                      c, logsv_p0, nb_iters=SWEEP_ITERS, year_steps=SWEEP_YEAR_STEPS,
+                      device=DEVICE),
+                  lambda p: [p.sigma0, p.theta, p.kappa1, p.beta, p.volvol], "logsv_lm_sweep"),
+        "Heston": (lambda cs, iters=SWEEP_ITERS: sweep.calibrate_heston_lm_sweep(
+                       cs, heston_p0, nb_iters=iters, device=DEVICE),
+                   lambda c: svt.calibrate_heston_lm(c, heston_p0, nb_iters=SWEEP_ITERS,
+                                                   device=DEVICE),
+                   lambda p: [p.v0, p.theta, p.kappa, p.rho, p.volvol], "heston_lm_sweep")}
+    for name, (run, single, vector, graph) in models.items():
+        replays = graphs.REPLAYS[graph]
+        torch.cuda.reset_peak_memory_stats()
+        fits, capture_s = _timed_s(lambda: run(chains))
+        peak_capture = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        again, warm_s = _timed_s(lambda: run(chains))
+        peak_warm = torch.cuda.max_memory_allocated() / 2 ** 30
+        _check(_same(again, fits), f"{name} sweep: a warm call differs from the first")
+        _check(graphs.REPLAYS[graph] == replays + 2, f"{name} sweep: the graph did not replay")
+        again, counts = _profiled(lambda: run(chains))
+        _check(_same(again, fits), f"{name} sweep: the profiled call differs from the first")
+        costs = np.array([c for _, c in fits])
+        _check(bool(np.all(np.isfinite(costs))) and len(fits) == SWEEP_CHAINS,
+               f"{name} sweep costs {costs}")
+        gap = 0.0
+        for i in (0, SWEEP_CHAINS // 2, SWEEP_CHAINS - 1):
+            fit_i, cost_i = single(chains[i])
+            want, got = np.array(vector(fit_i) + [cost_i]), np.array(vector(fits[i][0]) + [costs[i]])
+            gap = max(gap, float(np.max(np.abs(got - want) / np.abs(want))))
+        _check(gap < 1e-6, f"{name} sweep against single-chain fits: relative gap {gap}")
+        small = chains[::SWEEP_CHAINS // SWEEP_CHECK_CHAINS][:SWEEP_CHECK_CHAINS]
+        captured = run(small, SWEEP_CHECK_ITERS)
+        with graphs.eager():
+            eager, eager_s = _timed_s(lambda: run(small, SWEEP_CHECK_ITERS))
+        _check(_same(captured, eager), f"{name} sweep: captured differs from eager")
+        print(f"[sweep] {name} LM sweep of {SWEEP_CHAINS} perturbed BTC chains (ivols x "
+              f"[0.90, 1.10]), {SWEEP_ITERS} iterations"
+              + (f" at {SWEEP_YEAR_STEPS} steps/yr" if name == "LogSV" else "")
+              + f", one CUDA graph: capture (first call) {capture_s:.2f} s, warm "
+              f"{warm_s:.3f} s, {SWEEP_CHAINS / warm_s:.2f} chains/s; peak memory "
+              f"{peak_capture:.2f} GiB capturing, {peak_warm:.2f} GiB warm; profiled: "
+              f"{_busy_line(counts)}; cost median {np.median(costs):.3e}, max "
+              f"{np.max(costs):.3e}; chains 0, {SWEEP_CHAINS // 2}, {SWEEP_CHAINS - 1} against "
+              f"their single-chain fits: max relative gap {gap:.2e}; captured equal bit for bit "
+              f"to eager at {SWEEP_CHECK_CHAINS} chains x {SWEEP_CHECK_ITERS} iterations (eager "
+              f"{eager_s:.2f} s) | {smi}", flush=True)
+
+
+# the phases that run in the side process, in order: none launches a hand-written kernel
+SIDE_PHASES = ("greeks", "terminal-models", "sweep")
+
+
+def _side_phases(conn) -> None:
+    """the side process: each of SIDE_PHASES on the BTC chain, its walls (or
+    the traceback of its failure) sent back through ``conn``."""
+    import traceback
+
+    try:
+        import stochvolmodels_torch as svt
+        from stochvolmodels_torch.ops import graphs
+
+        chain = svt.get_btc_test_chain_data()
+        phases = {"greeks": _greeks_phase, "terminal-models": _terminal_models_phase,
+                  "sweep": _sweep_phase}
+        walls = {}
+        for name in SIDE_PHASES:
+            t0 = time.perf_counter()
+            phases[name](svt, graphs, chain)
+            walls[name] = time.perf_counter() - t0
+        conn.send(("ok", walls))
+    except BaseException:
+        conn.send(("failed", traceback.format_exc()))
+        raise
+    finally:
+        conn.close()
+
+
+def _start_side_phases():
+    """(the side process, the end of the pipe it reports on), started."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    receiver, sender = ctx.Pipe(duplex=False)
+    process = ctx.Process(target=_side_phases, args=(sender,), name="chip_smoke side phases")
+    process.start()
+    sender.close()
+    return process, receiver
+
+
+def _join_side_phases(process, receiver) -> dict:
+    """the side phases' walls, after the process ends; raises if it failed."""
+    try:
+        status, payload = receiver.recv()
+    except EOFError:
+        status, payload = "failed", "the side process ended without a report"
+    process.join()
+    _check(status == "ok" and process.exitcode == 0,
+           f"side phases (exit code {process.exitcode}): {payload}")
+    return payload
 
 
 def main() -> int:
@@ -1639,28 +1931,38 @@ def main() -> int:
         walls[name] = time.perf_counter() - t0
         return out
 
-    # 11.-12. calibration and the CUDA graphs of the launch-bound calls
-    timed("calibration", _calibration_phase, svt, gpu, chain)
-    timed("graphs", _graph_phase, svt, chain, gpu, hgpu, kgpu, P, H, HP)
-    # 13.-15. Heston and Hawkes calibration, the Hawkes reprice as one graph
-    timed("heston-calibration", _heston_calibration_phase, svt, hgpu, chain)
-    timed("hawkes-graphs", _hawkes_graph_phase, svt, kgpu, chain)
-    timed("hawkes-calibration", _hawkes_calibration_phase, svt, kgpu, chain)
-    # 16.-20. LogSV beyond LOG_RETURN: Q_VAR, densities, Q_VAR MC through logsv_mc, the MC
-    # engines and the MC calibration
+    # 11. the rough rules, whose kernel timings, like those above, run before the side process
     from stochvolmodels_torch.ops import graphs
-    timed("qvar", _qvar_phase, svt, graphs)
-    timed("pdfs", _pdfs_phase, svt, graphs)
-    err["logsv_mc"] = max(err["logsv_mc"], timed("qvar-mc", _qvar_mc_phase, svt, cuda_mc,
-                                                 mc_variants))
-    timed("mc-engines", _mc_engines_phase, svt, graphs, chain)
-    timed("mc-calibration", _mc_calibration_phase, svt, chain)
-    # 21.-24. greeks, the exponential-Euler solve, the Heston extras and the rough rules
-    timed("greeks", _greeks_phase, svt, graphs, chain)
-    timed("analytic-ode", _analytic_ode_phase, svt, graphs, chain)
-    timed("heston-extras", _heston_extras_phase, svt, graphs, chain)
     rough_rules = timed("rough-rules", _rough_rules_phase, svt, cuda_mc, mc_variants, chain)
     err["rough_mc"] = max([err["rough_mc"]] + [e for _, _, e in rough_rules.values()])
+    # 12.-14. the greeks, the terminal models and the LM sweeps in a side process, beside
+    # the phases below: all of them are bound by host launch work, not by the card
+    side, side_conn = _start_side_phases()
+    try:
+        # 15.-16. calibration and the CUDA graphs of the launch-bound calls
+        timed("calibration", _calibration_phase, svt, gpu, chain)
+        timed("graphs", _graph_phase, svt, chain, gpu, hgpu, kgpu, P, H, HP)
+        # 17.-19. Heston and Hawkes calibration, the Hawkes reprice as one graph
+        timed("heston-calibration", _heston_calibration_phase, svt, hgpu, chain)
+        timed("hawkes-graphs", _hawkes_graph_phase, svt, kgpu, chain)
+        timed("hawkes-calibration", _hawkes_calibration_phase, svt, kgpu, chain)
+        # 20.-24. LogSV beyond LOG_RETURN: Q_VAR, densities, Q_VAR MC through logsv_mc, the MC
+        # engines and the MC calibration
+        timed("qvar", _qvar_phase, svt, graphs)
+        timed("pdfs", _pdfs_phase, svt, graphs)
+        err["logsv_mc"] = max(err["logsv_mc"], timed("qvar-mc", _qvar_mc_phase, svt, cuda_mc,
+                                                     mc_variants))
+        timed("mc-engines", _mc_engines_phase, svt, graphs, chain)
+        timed("mc-calibration", _mc_calibration_phase, svt, chain)
+        # 25.-26. the exponential-Euler solve and the Heston extras
+        timed("analytic-ode", _analytic_ode_phase, svt, graphs, chain)
+        timed("heston-extras", _heston_extras_phase, svt, graphs, chain)
+        walls.update({f"{k} (side process)": v
+                      for k, v in _join_side_phases(side, side_conn).items()})
+    finally:
+        if side.is_alive():
+            side.terminate()
+            side.join(30)
     print("[phase-walls] s: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
           + f"; total {time.perf_counter() - t_start:.1f}", flush=True)
 

@@ -4,6 +4,7 @@
     python3 scripts/profile_torch_port.py [--model logsv|heston|hawkes|rough]
                                           [--nb-path 1048576] [--out DIR]
                                           [--calls NAME ...] [--eager]
+                                          [--batch N ...]
 
 For each warm call of a model's BTC-chain serving path (analytic
 ``price_chain``, ``compute_model_ivols_for_chain``, and the MC chain, bare
@@ -33,6 +34,17 @@ iterations from the JAX test's start point); ``hawkes``:
 ``calibrate_lm`` (16 iterations at 720 steps/yr).  Each fit's line adds
 scipy's ``nfev`` and ``nit`` where there are, and the mean |model ivol - mid
 vol| of the fit.
+
+``--calls sweep`` (``logsv`` or ``heston``, named only) times the batched
+LM sweep (``parallel/sweep.py``) of N perturbed BTC chains (bid and ask
+ivols scaled on [0.90, 1.10]) for each N of ``--batch`` (default 64), from
+``tests/test_parallel.py``'s start points at the JAX defaults: 16
+iterations, LogSV at 360 RK4 steps/yr.  Each N prints one line: the first
+call's wall (it captures the batched fit as one CUDA graph), the warm
+call's wall and chains/s, the peak device memory of each
+(``torch.cuda.max_memory_allocated``), and the device busy time, idle share
+and kernel count of one profiled warm call; an N that does not fit in the
+card's memory prints the error and the peak instead, and the next N runs.
 """
 import argparse
 import contextlib
@@ -89,6 +101,8 @@ def main() -> int:
     parser.add_argument("--calls", nargs="+")
     parser.add_argument("--eager", action="store_true",
                         help="run without the CUDA graphs of the bisection and the LM fit")
+    parser.add_argument("--batch", type=int, nargs="+", default=[64],
+                        help="chains per sweep for --calls sweep")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_port: needs a CUDA device", file=sys.stderr)
@@ -155,8 +169,64 @@ def main() -> int:
         recs += [_time_fit(f"{tag}{name}", pricer, fit_chain, fn,
                            warm=name == "calibrate_lm" and not args.eager)
                  for name, (fit_chain, fn) in fits.items() if args.calls and name in args.calls]
+        if args.calls and "sweep" in args.calls:
+            recs += [_time_sweep(svt, args.model, chain, n) for n in args.batch]
     (out_dir / f"profile_{tag}summary.json").write_text(json.dumps(recs, indent=1))
     return 0
+
+
+def _time_sweep(svt, model, chain, n):
+    """the batched LM sweep of ``n`` perturbed chains: capture and warm
+    walls, chains/s, peak memory, and one profiled warm call."""
+    import dataclasses
+
+    import numpy as np
+
+    from stochvolmodels_torch.parallel import sweep
+
+    chains = [dataclasses.replace(chain, bid_ivs=[s * iv for iv in chain.bid_ivs],
+                                  ask_ivs=[s * iv for iv in chain.ask_ivs])
+              for s in np.linspace(0.90, 1.10, n)]
+    if model == "heston":
+        fn = lambda: sweep.calibrate_heston_lm_sweep(
+            chains, svt.HestonParams(v0=0.8 ** 2, theta=1.3 ** 2, kappa=4.0, volvol=1.5, rho=0.1))
+    else:
+        fn = lambda: sweep.calibrate_logsv_lm_sweep(
+            chains, svt.LogSvParams(sigma0=0.8, theta=1.0, kappa1=2.21, kappa2=2.21, beta=0.15,
+                                    volvol=1.85))
+    rec = {"call": f"{model}_sweep", "chains": n, "nb_iters": 16,
+           "year_steps": 360 if model == "logsv" else None}
+    walls, peaks = [], []
+    try:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            fits = fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as exc:
+        rec.update(error=f"out of memory: {str(exc).splitlines()[0]}",
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, walls_s=walls)
+        print(json.dumps(rec), flush=True)
+        torch.cuda.empty_cache()
+        return rec
+    busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    costs = [c for _, c in fits]
+    rec.update(capture_s=walls[0], warm_s=walls[1], chains_per_s=n / walls[1],
+               peak_gib_capture=peaks[0], peak_gib_warm=peaks[1], device_busy_ms=busy_ms,
+               device_idle_share=1.0 - busy_ms / (1e3 * walls[1]),
+               kernel_launches=sum(1 for e in prof.events()
+                                   if e.device_type == torch.autograd.DeviceType.CUDA),
+               cost_median=statistics.median(costs), cost_max=max(costs),
+               finite=bool(np.all(np.isfinite(costs))))
+    print(json.dumps(rec), flush=True)
+    return rec
 
 
 def _time_fit(name, pricer, chain, fn, warm):

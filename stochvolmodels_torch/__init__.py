@@ -16,7 +16,10 @@ Levenberg-Marquardt) and for the Hawkes jump-diffusion model (Riccati Fourier
 prices as one CUDA graph a reprice, the risk-premia pricer, thinning Monte
 Carlo, and calibration by SLSQP, by Levenberg-Marquardt, and of the risk
 premia); the chain greeks of LogSV (analytic and pathwise MC) and Heston by
-forward-mode AD, in price or implied-vol space.  Every Monte-Carlo path loop runs in a hand-written
+forward-mode AD, in price or implied-vol space; the Bachelier (normal) and
+Student-t analytics, the Gaussian-mixture and Student-t terminal pricers with
+their per-slice SLSQP fits, and batched Levenberg-Marquardt sweeps of many
+chains at once (``stochvolmodels_torch.parallel.sweep``).  Every Monte-Carlo path loop runs in a hand-written
 CUDA kernel on NVIDIA Hopper.  Every entry point runs on the card unless the
 caller asks for the CPU (``LogSVPricer(device="cpu")``); without a card, a call
 on the default device raises.
@@ -40,11 +43,14 @@ from stochvolmodels_torch.data.sample_chains import (  # noqa: F401
 )
 from stochvolmodels_torch.interop import (  # noqa: F401
     chain_from_numpy,
+    gmm_params_from_numpy,
     hawkes_params_from_numpy,
     qmc_panels_from_numpy,
     heston_params_from_numpy,
     params_from_numpy,
+    tdist_params_from_numpy,
 )
+from stochvolmodels_torch.models.gmm import GmmParams, GmmPricer  # noqa: F401
 from stochvolmodels_torch.models.hawkes_jd import (  # noqa: F401
     HawkesJDParams,
     HawkesJDPricer,
@@ -116,6 +122,7 @@ from stochvolmodels_torch.models.logsv.vol_moments import (  # noqa: F401
     fit_model_vol_backbone_to_varswaps,
 )
 from stochvolmodels_torch.models.model_pricer import ModelParams, ModelPricer  # noqa: F401
+from stochvolmodels_torch.models.tdist import TdistParams, TdistPricer  # noqa: F401
 from stochvolmodels_torch.models.rough.kernel import (  # noqa: F401
     abi_jaber_el_euch_rule,
     ak_geometric_rule,
@@ -139,19 +146,44 @@ from stochvolmodels_torch.models.rough.simulation import (  # noqa: F401
     rough_logsv_mc_chain_pricer,
     strang_step,
 )
+from stochvolmodels_torch.ops.bachelier import (  # noqa: F401
+    compute_normal_delta,
+    compute_normal_delta_from_lognormal_vol,
+    compute_normal_delta_to_strike,
+    compute_normal_price,
+    compute_normal_slice_deltas,
+    compute_normal_slice_prices,
+    compute_normal_slice_vegas,
+    compute_normal_vegas_ttms,
+    infer_normal_implied_vol,
+    infer_normal_implied_vol_fast,
+    infer_normal_ivols_from_chain_prices,
+    infer_normal_ivols_from_model_slice_prices,
+    infer_normal_ivols_from_slice_prices,
+    strikes_to_delta,
+)
 from stochvolmodels_torch.ops.bsm import (  # noqa: F401
     compute_bsm_digital_delta,
     compute_bsm_digital_price,
     compute_bsm_forward_grid_prices,
+    compute_bsm_slice_vegas,
     compute_bsm_strike_from_delta,
     compute_bsm_vanilla_delta,
+    compute_bsm_vanilla_delta_vector,
     compute_bsm_vanilla_gamma,
+    compute_bsm_vanilla_grid_deltas,
     compute_bsm_vanilla_price,
+    compute_bsm_vanilla_price_vector,
+    compute_bsm_vanilla_slice_deltas,
+    compute_bsm_vanilla_slice_prices,
+    compute_bsm_vanilla_slice_vegas,
     compute_bsm_vanilla_theta,
     compute_bsm_vanilla_vega,
     infer_bsm_implied_vol,
     infer_bsm_implied_vol_fast,
     infer_bsm_ivols_from_model_chain_prices,
+    infer_bsm_ivols_from_model_slice_prices,
+    infer_bsm_ivols_from_slice_prices,
 )
 from stochvolmodels_torch.ops.cuda_mc import (  # noqa: F401
     engine_setup,
@@ -187,6 +219,18 @@ from stochvolmodels_torch.ops.mgf import (  # noqa: F401
 from stochvolmodels_torch.ops.lm import lm_init, lm_minimize, lm_step  # noqa: F401
 from stochvolmodels_torch.ops.payoffs import compute_mc_vars_payoff, mc_vars_payoff  # noqa: F401
 from stochvolmodels_torch.ops.random import antithetic_step_normals, generator_from_seed  # noqa: F401
+from stochvolmodels_torch.ops.tdist import (  # noqa: F401
+    cdf_tdist,
+    compute_default_prob_tdist,
+    compute_forward_tdist,
+    compute_upsilon,
+    compute_vanilla_price_tdist,
+    cum_mean_tdist,
+    imply_drift_tdist,
+    infer_implied_vol_tdist,
+    infer_tdist_implied_vols_from_model_slice_prices,
+    pdf_tdist,
+)
 from stochvolmodels_torch.utils.funcs import (  # noqa: F401
     SeriesLike,
     compute_histogram_data,
@@ -199,3 +243,6 @@ from stochvolmodels_torch.utils.funcs import (  # noqa: F401
     unpad,
     update_kwargs,
 )
+from stochvolmodels_torch.utils.var_swap import compute_var_swap_strike  # noqa: F401
+
+__version__ = "0.1.0"

@@ -3,7 +3,8 @@ Carry state over from the JAX package, through plain numpy and floats only.
 
 Nothing here imports the JAX package: callers hand over what its objects hold
 (``LogSvParams.to_dict()``, ``HestonParams.to_dict()``,
-``HawkesJDParams.to_dict()``, the ragged arrays of an ``OptionChain``, a vol
+``HawkesJDParams.to_dict()``, ``GmmParams.to_dict()``,
+``TdistParams.to_dict()``, the ragged arrays of an ``OptionChain``, a vol
 backbone Series, the uint32 QMC panels of LogSV's and Heston's Sobol
 engines, two streams a step), so the same state can be fed to both
 packages.
@@ -16,9 +17,11 @@ import numpy as np
 import torch
 
 from stochvolmodels_torch.data.option_chain import OptionChain
+from stochvolmodels_torch.models.gmm import GmmParams
 from stochvolmodels_torch.models.hawkes_jd import HawkesJDParams
 from stochvolmodels_torch.models.heston import HestonParams
 from stochvolmodels_torch.models.logsv.params import LogSvParams
+from stochvolmodels_torch.models.tdist import TdistParams
 from stochvolmodels_torch.utils.funcs import SeriesLike
 
 
@@ -53,6 +56,18 @@ def hawkes_params_from_numpy(d: Mapping[str, Any]) -> HawkesJDParams:
     fields = [k for k in HawkesJDParams.__dataclass_fields__ if k != "risk_premia_gamma"]
     return HawkesJDParams(**{k: float(d[k]) for k in fields},
                           risk_premia_gamma=None if gamma is None else float(gamma))
+
+
+def gmm_params_from_numpy(d: Mapping[str, Any]) -> GmmParams:
+    """GmmParams from the JAX package's ``GmmParams.to_dict()``."""
+    arr = lambda k: np.array(d[k], dtype=float)
+    return GmmParams(gmm_weights=arr("gmm_weights"), gmm_mus=arr("gmm_mus"),
+                     gmm_vols=arr("gmm_vols"), ttm=float(d["ttm"]))
+
+
+def tdist_params_from_numpy(d: Mapping[str, Any]) -> TdistParams:
+    """TdistParams from the JAX package's ``TdistParams.to_dict()``."""
+    return TdistParams(**{k: float(d[k]) for k in ("drift", "vol", "nu", "ttm")})
 
 
 def chain_from_numpy(ttms: Sequence[float],

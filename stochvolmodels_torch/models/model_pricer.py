@@ -3,8 +3,9 @@ ModelPricer: the interface every model implements.
 
 PyTorch counterpart of ``stochvolmodels_tpu/models/model_pricer.py``.  A
 concrete pricer supplies ``price_chain`` (analytic transform pricing) and
-``model_mc_price_chain``; this base class builds slice and vanilla pricing,
-implied vols and MC confidence bands on top.  Results at the API boundary are
+may supply ``model_mc_price_chain`` and ``calibrate_model_params_to_chain``
+(both raise here); this base class builds slice and vanilla pricing, implied
+vols and MC confidence bands on top.  Results at the API boundary are
 ragged numpy lists; the tensor work runs on the pricer's ``device``: the card
 (``"cuda"``) unless the caller asks for ``"cpu"``.  Without a card a pricer on
 the default device raises at its first tensor; it never falls back to the CPU.
@@ -70,6 +71,10 @@ class ModelPricer(ABC):
                              variable_type: VariableType = VariableType.LOG_RETURN,
                              **kwargs) -> Tuple[List[np.ndarray], List[np.ndarray]]:
         """price chain by simulating model dynamics; (prices, stderrs)."""
+        raise NotImplementedError("must be implemented in parent class")
+
+    def calibrate_model_params_to_chain(self, option_chain: OptionChain, **kwargs):
+        """fit model params to chain quotes."""
         raise NotImplementedError("must be implemented in parent class")
 
     def price_slice(self, params: ModelParams, ttm: float, forward: float,

@@ -230,31 +230,21 @@ def compute_bsm_digital_delta(forward, strike, ttm, vol, optiontype='C',
     return torch.where(intr, 0.0, live)
 
 
-def _bisection_impl(given_price, forward, strike, ttm, discfactor, is_call_f):
-    """the reference bisection on whole tensors (all of one shape).
-
-    ``is_call_f`` is 1.0 for calls and -1.0 for puts.  Each element stops
-    moving once its |price error| falls below the tolerance, mirroring the
-    reference's early break.
-    """
-    def price_at(vol):
-        sgn = is_call_f
-        s_ttm = vol * torch.sqrt(ttm)
-        d1 = (torch.log(forward / strike) + 0.5 * s_ttm * s_ttm) / s_ttm
-        d2 = d1 - s_ttm
-        return discfactor * sgn * (forward * ncdf(sgn * d1) - strike * ncdf(sgn * d2))
-
-    x1 = torch.full_like(given_price, IV_LOWER)
-    x2 = torch.full_like(given_price, IV_UPPER)
+def frozen_bisection(price_at, given_price, lower: float, upper: float, iters: int, tol: float):
+    """the reference bisection for price_at(vol) = given_price on [lower,
+    upper], on whole tensors: ``iters`` halvings, each element frozen once
+    its |price error| falls below ``tol`` (the reference's early break).
+    Returns (last midpoint, price error at ``lower``, bracketed mask)."""
+    x1 = torch.full_like(given_price, lower)
+    x2 = torch.full_like(given_price, upper)
     f = price_at(x1) - given_price
     fmid = price_at(x2) - given_price
     bracketed = f * fmid < 0.0
-
     rtb = torch.where(f < 0.0, x1, x2)
     dx = torch.where(f < 0.0, x2 - x1, x1 - x2)
     xmid = rtb
     done = torch.zeros_like(bracketed)
-    for _ in range(200):
+    for _ in range(iters):
         dx_new = dx * 0.5
         xmid_new = rtb + dx_new
         fmid_new = price_at(xmid_new) - given_price
@@ -263,11 +253,32 @@ def _bisection_impl(given_price, forward, strike, ttm, discfactor, is_call_f):
         rtb = torch.where(upd, rtb_new, rtb)
         dx = torch.where(upd, dx_new, dx)
         xmid = torch.where(upd, xmid_new, xmid)
-        done = done | (torch.abs(fmid_new) < IV_TOL)
+        done = done | (torch.abs(fmid_new) < tol)
+    return xmid, f, bracketed
 
+
+def bisection_nan_at_bounds(price_at, given_price, lower: float, upper: float, iters: int,
+                            tol: float) -> torch.Tensor:
+    """:func:`frozen_bisection`, with an unbracketed quote at its nearer
+    bound and any result within ``tol`` of a bound set to NaN."""
+    xmid, f, bracketed = frozen_bisection(price_at, given_price, lower, upper, iters, tol)
+    x1, x2 = torch.full_like(given_price, lower), torch.full_like(given_price, upper)
     v1 = torch.where(bracketed, xmid, torch.where(f < 0.0, x1, x2))
-    at_bounds = (torch.abs(v1 - x1) < IV_TOL) | (torch.abs(v1 - x2) < IV_TOL)
+    at_bounds = (torch.abs(v1 - x1) < tol) | (torch.abs(v1 - x2) < tol)
     return torch.where(at_bounds, torch.nan, v1)
+
+
+def _bisection_impl(given_price, forward, strike, ttm, discfactor, is_call_f):
+    """the reference's 200-step bisection on [0.01, 5.0] on whole tensors
+    (all of one shape); ``is_call_f`` is 1.0 for calls and -1.0 for puts."""
+    def price_at(vol):
+        sgn = is_call_f
+        s_ttm = vol * torch.sqrt(ttm)
+        d1 = (torch.log(forward / strike) + 0.5 * s_ttm * s_ttm) / s_ttm
+        d2 = d1 - s_ttm
+        return discfactor * sgn * (forward * ncdf(sgn * d1) - strike * ncdf(sgn * d2))
+
+    return bisection_nan_at_bounds(price_at, given_price, IV_LOWER, IV_UPPER, 200, IV_TOL)
 
 
 def _bisection(given_price, forward, strike, ttm, discfactor, is_call_f) -> torch.Tensor:

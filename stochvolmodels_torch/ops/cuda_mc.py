@@ -69,12 +69,20 @@ _FLT_MIN = 1.1754944e-38
 # the carried sigma^2 dt 2, qvar 3).
 # heston_mc: the normals 46 + 28, the step 22 (the increments 2, sqrtf 1,
 # v dt 1, x 4, qvar 1, v 9, the floor that keeps NaN 4).
-# rough_mc is counted at 3 nodes: the normals 46 + 28, the two RK4 half
-# steps 106 + 111 (one w.v carried), the diffusion 15, the floor test and
-# the two remaining dots 11, the log-spot and variance algebra 28.
+# rough_mc at N nodes (ROUGH_OPS_PER_STEP; its OPS_PER_STEP entry is N = 3):
+# an N-term dot 2N - 1 (a product, N - 1 FMAs), the drift's right-hand side
+# 3N + 4 (g 4, each factor a difference and an FMA), one RK4 half step 4
+# right-hand sides, 3 stage dots and 5N for the stages and the combination:
+# 31N + 13, the second one 33N + 12 (its seed dot is not carried); the
+# diffusion 3N + 6 (the dot, the scaled exponential 5, the spread N + 2);
+# the floor test and the two remaining dots 4N - 1; with the normals 46 +
+# 28 and the log-spot and variance algebra 28: 71N + 104 float32 and 34
+# integer operations a path-step (N = 3: 317 + 34).
 # hawkes_mc's entry counts what every path-step runs; HAWKES_BRANCH_OPS adds
 # what its branches run.  They set the kernels' roofline bounds.
-OPS_PER_STEP = {"logsv_mc": (73, 34), "heston_mc": (68, 34), "rough_mc": (317, 34),
+ROUGH_OPS_PER_STEP = {n: (46 + (31 * n + 13) + (33 * n + 12) + (3 * n + 6) + (4 * n - 1) + 28,
+                          34) for n in range(1, 6)}
+OPS_PER_STEP = {"logsv_mc": (73, 34), "heston_mc": (68, 34), "rough_mc": ROUGH_OPS_PER_STEP[3],
                 "hawkes_mc": (76, 54)}
 # operations of a hawkes_mc branch, per path-step that takes it, on each side:
 # "log" is the exact thinning test where the pre-test fails (the polynomial

@@ -7,7 +7,9 @@
     instead of running on the CPU: the pricers, the fast implied vol, and
     the calibrations (LogSV SLSQP, LM and Adam; Heston SLSQP and LM; Hawkes
     SLSQP, LM and the risk-premia fit), the Q_VAR pricer and the densities,
-    the QMC chain MC, the vol paths and the MC calibration.
+    the QMC chain MC, the vol paths and the MC calibration, the Bachelier
+    and Student-t analytics, the GMM and Student-t pricers and fits, and
+    the LogSV and Heston LM sweeps.
 """
 import importlib
 import inspect
@@ -19,6 +21,8 @@ import torch
 
 import stochvolmodels_torch as svt
 from stochvolmodels_torch.ops import random as port_random
+from stochvolmodels_torch.parallel.sweep import calibrate_heston_lm_sweep as heston_lm_sweep
+from stochvolmodels_torch.parallel.sweep import calibrate_logsv_lm_sweep as logsv_lm_sweep
 
 
 def public_callables():
@@ -52,7 +56,12 @@ def test_no_device_parameter_defaults_to_the_cpu():
     for name in ("models.logsv.fast_calibration.calibrate_logsv_lm_on_device",
                  "models.heston.calibrate_heston_lm",
                  "models.hawkes_jd.calibrate_hawkesjd_lm_on_device",
-                 "models.hawkes_jd.hawkesjd_forwards_under_risk_kernel"):
+                 "models.hawkes_jd.hawkesjd_forwards_under_risk_kernel",
+                 "ops.bachelier.compute_normal_deltas_ttms",
+                 "models.gmm.gmm_vanilla_chain_pricer",
+                 "models.tdist.tdist_vanilla_chain_pricer",
+                 "parallel.sweep.calibrate_logsv_lm_sweep",
+                 "parallel.sweep.calibrate_heston_lm_sweep"):
         assert f"stochvolmodels_torch.{name}" in with_device, name
     not_cuda = {name: d for name, d in with_device.items()
                 if d is None or torch.device(d).type != "cuda"}
@@ -123,6 +132,27 @@ def default_device_calls():
             lambda: svt.LogSVPricer().calibrate_model_params_to_chain(
                 chain, svt.LOGSV_BTC_PARAMS, calibration_engine=svt.CalibrationEngine.MC,
                 nb_path=256),
+        "compute_normal_price": lambda: svt.compute_normal_price(
+            np.ones(3), np.ones(3), np.ones(3), np.full(3, 0.05)),
+        "infer_normal_implied_vol": lambda: svt.infer_normal_implied_vol(
+            np.ones(3), np.ones(3), np.ones(3), np.full(3, 0.01)),
+        "infer_normal_implied_vol_fast": lambda: svt.infer_normal_implied_vol_fast(
+            np.ones(3), np.ones(3), np.ones(3), np.full(3, 0.01)),
+        "compute_vanilla_price_tdist": lambda: svt.compute_vanilla_price_tdist(
+            1.0, np.ones(3), 0.25, 0.8),
+        "infer_implied_vol_tdist": lambda: svt.infer_implied_vol_tdist(
+            1.0, 0.25, np.ones(3), np.full(3, 0.1)),
+        "GmmPricer.price_chain": lambda: svt.GmmPricer().price_chain(
+            chain, svt.GmmParams(np.array([0.5, 0.5]), np.zeros(2), np.array([0.5, 1.0]), 0.1)),
+        "GmmPricer.calibrate_model_params_to_chain": lambda: svt.GmmPricer(
+            ).calibrate_model_params_to_chain(chain),
+        "TdistPricer.price_chain": lambda: svt.TdistPricer().price_chain(
+            chain, svt.TdistParams(drift=0.0, vol=0.8, nu=4.0, ttm=0.1)),
+        "TdistPricer.calibrate_model_params_to_chain": lambda: svt.TdistPricer(
+            ).calibrate_model_params_to_chain(chain),
+        "calibrate_logsv_lm_sweep": lambda: logsv_lm_sweep([chain, chain], svt.LOGSV_BTC_PARAMS),
+        "calibrate_heston_lm_sweep": lambda: heston_lm_sweep([chain, chain],
+                                                             svt.BTC_HESTON_PARAMS),
     }
 
 
@@ -146,7 +176,14 @@ def default_device_calls():
                                   "LogSVPricer.price_chain(Q_VAR)", "logsv_pdfs",
                                   "LogSVPricer.model_mc_price_chain(qmc)",
                                   "LogSVPricer.simulate_vol_paths",
-                                  "LogSVPricer.calibrate_model_params_to_chain(MC)"])
+                                  "LogSVPricer.calibrate_model_params_to_chain(MC)",
+                                  "compute_normal_price", "infer_normal_implied_vol",
+                                  "infer_normal_implied_vol_fast", "compute_vanilla_price_tdist",
+                                  "infer_implied_vol_tdist", "GmmPricer.price_chain",
+                                  "GmmPricer.calibrate_model_params_to_chain",
+                                  "TdistPricer.price_chain",
+                                  "TdistPricer.calibrate_model_params_to_chain",
+                                  "calibrate_logsv_lm_sweep", "calibrate_heston_lm_sweep"])
 def test_default_device_call_raises_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("this PyTorch has a CUDA device: the default device runs")

@@ -70,6 +70,19 @@ backbone = svt.fit_model_vol_backbone_to_varswaps(svt.LOGSV_BTC_PARAMS,
                                                   chain.get_slice_varswap_strikes())
 assert np.all(np.isfinite(qv_prices[0])) and np.isfinite(pdf).all() and np.isfinite(qmc[0]).all()
 assert np.all(backbone.to_numpy() > 0.0), backbone
+import torch
+from stochvolmodels_torch.parallel.sweep import calibrate_heston_lm_sweep
+ones = torch.ones(3, dtype=torch.float64)
+normal = svt.infer_normal_implied_vol(ones, ones, ones, svt.compute_normal_price(ones, ones, ones,
+                                                                                 0.05 * ones))
+t_price = svt.compute_vanilla_price_tdist(1.0, ones, 0.25, 0.8)
+gmm = svt.GmmPricer(device="cpu").price_chain(two, svt.GmmParams(
+    np.array([0.5, 0.5]), np.zeros(2), np.array([0.5, 1.0]), 0.1))
+tdist = svt.TdistPricer(device="cpu").price_chain(two, svt.TdistParams(0.0, 0.8, 4.0, 0.1))
+(_, sweep_cost), = calibrate_heston_lm_sweep([two], svt.BTC_HESTON_PARAMS, nb_iters=1,
+                                             device="cpu")
+assert torch.allclose(normal, 0.05 * ones) and torch.isfinite(t_price).all(), (normal, t_price)
+assert all(np.isfinite(p).all() for p in gmm + tdist) and np.isfinite(sweep_cost)
 loaded = sorted(m for m, mod in sys.modules.items() if m.split(".")[0] in BLOCKED and mod is not None)
 assert not loaded, loaded
 print("ok", len(prices))
@@ -78,10 +91,11 @@ print("ok", len(prices))
 
 def test_port_imports_and_prices_without_jax_pandas_matplotlib_triton():
     """LogSV, Heston and Hawkes analytic prices, the rough and Hawkes MC's
-    plain kernel versions, one Heston and one Hawkes LM iteration, and the
+    plain kernel versions, one Heston and one Hawkes LM iteration, the
     LogSV Q_VAR prices, a density, the QMC chain MC and the varswap
-    backbone fit, in a process that cannot import jax, pandas, matplotlib
-    or triton."""
+    backbone fit, a Bachelier price and implied vol, a Student-t price, the
+    GMM and Student-t chain prices and one Heston LM sweep iteration, in a
+    process that cannot import jax, pandas, matplotlib or triton."""
     out = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, capture_output=True,
                          text=True, timeout=300, env=dict(os.environ, PYTHONPATH=str(REPO)))
     assert out.returncode == 0, out.stderr
