@@ -62,11 +62,18 @@ call; one GMM and one Student-t per-slice SLSQP fit of the first two
 slices) and the LogSV and Heston LM sweeps of 64 perturbed BTC chains (one
 CUDA graph each, chains/s, peak memory, device busy; the first, middle and
 last chain against their single-chain fits; captured against eager bit for
-bit on 4 chains).  The greeks, the terminal models and the sweeps run in a
-side process started after the kernel timings (the rough rules run before
-it), beside the calibration and graph phases: all are bound by host launch
-work; the walls of the phases that overlap include the other process's
-load on the card.  Each phase prints one line, and a ``[phase-walls]`` line their walls; any
+bit on 4 chains).  Then the factor-HJM swaption cube on the USD cube of 18
+Aug 2023 at the paper's fitted parameters (12 slices x 9 strikes): the
+reprice (one CUDA graph) captured against eager bit for bit, the card
+against the CPU in price and normal ivol, the RMS gap to the market mids;
+the three cube greeks (one graph each) captured against eager and the card
+against the CPU; the adaptive tanh-sinh pricer's 1y row (its ff calls and
+RK4 graphs, one batch's graph against its eager call, the card against the
+CPU).  The greeks, the terminal models, the sweeps and the rates cube run
+in a side process started after the kernel timings (the rough rules run
+before it), beside the calibration and graph phases: all are bound by host
+launch work; the walls of the phases that overlap include the other
+process's load on the card.  Each phase prints one line, and a ``[phase-walls]`` line their walls; any
 failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 it exits 1 and prints no result.
@@ -1501,8 +1508,211 @@ def _sweep_phase(svt, graphs, chain) -> None:
               f"{eager_s:.2f} s) | {smi}", flush=True)
 
 
+# the USD swaption normal-vol cube of 18 August 2023 (6 expiries x 3 tenors x 9 strikes) and the
+# paper's fitted 3-factor Nelson-Siegel parameters, copied from
+# papers/sv_for_factor_hjm/calibration_fig_5_6_7.py:36-120 (that module imports JAX); the cube
+# reprices at the parameters' 5y term structure (P = 12 slices), the DE pricer's row is 1y
+USD_TTMS, USD_TENORS = np.array([1.0, 2.0, 3.0, 5.0, 7.0, 10.0]), np.array([2.0, 5.0, 10.0])
+USD_FORWARDS = [np.array([4.0750, 4.0350, 4.0550, 4.1150, 4.1550, 4.1000]) * 0.01,
+                np.array([4.0750, 4.0350, 4.0500, 4.1150, 4.1550, 4.1000]) * 0.01,
+                np.array([4.0750, 4.0300, 4.0500, 4.1150, 4.1500, 4.1000]) * 0.01]
+USD_IVS = [[[164.82, 159.85, 156.28, 153.48, 151.6, 150.76, 151, 152.28, 154.51],
+            [137.84, 137.23, 137.64, 139.12, 141.67, 145.16, 149.44, 154.33, 159.7],
+            [123.88, 123.76, 124.84, 127.2, 130.75, 135.3, 140.61, 146.47, 152.7],
+            [109.39, 108.57, 109.15, 111.27, 114.8, 119.48, 124.97, 130.99, 137.34],
+            [99.54, 98.4, 98.57, 100.24, 103.34, 107.59, 112.66, 118.27, 124.2],
+            [90.59, 88.27, 87.23, 87.26, 90.24, 94.11, 99.04, 104.62, 110.57]],
+           [[139.42, 136.82, 135.02, 134.17, 134.47, 135.62, 137.86, 140.94, 144.72],
+            [123.91, 122.97, 123.11, 124.43, 126.89, 130.35, 134.64, 139.55, 144.91],
+            [112.89, 112.6, 113.52, 115.7, 119.04, 123.33, 128.34, 133.86, 139.71],
+            [102.3, 101.56, 102.1, 104.02, 107.22, 111.46, 116.44, 121.92, 127.71],
+            [93.71, 92.57, 92.67, 94.16, 96.98, 100.9, 105.6, 110.81, 116.34],
+            [84.25, 82.31, 81.6, 82.41, 84.79, 88.48, 93.08, 98.26, 103.77]],
+           [[116.41, 115.51, 115.54, 116.59, 118.62, 121.54, 125.2, 129.44, 134.11],
+            [108.04, 107.74, 108.47, 110.25, 113.03, 116.65, 120.93, 125.68, 130.78],
+            [101.43, 101.38, 102.35, 104.34, 107.29, 111.01, 115.32, 120.05, 125.07],
+            [91.69, 91.41, 92.33, 94.48, 97.72, 101.83, 106.54, 111.65, 117],
+            [84.28, 83.64, 84.33, 86.47, 89.89, 94.28, 99.32, 104.76, 110.4],
+            [74.54, 73.66, 74.14, 76.14, 79.51, 83.87, 88.87, 94.22, 99.75]]]
+USD_STRIKES = [[[2.56, 2.93875, 3.3175, 3.69625, 4.075, 4.45375, 4.8325, 5.21125, 5.59],
+                [2.03, 2.53125, 3.0325, 3.53375, 4.035, 4.53625, 5.0375, 5.53875, 6.04],
+                [1.79, 2.35625, 2.9225, 3.48875, 4.055, 4.62125, 5.1875, 5.75375, 6.32],
+                [1.55, 2.19125, 2.8325, 3.47375, 4.115, 4.75625, 5.3975, 6.03875, 6.68],
+                [1.42, 2.10375, 2.7875, 3.47125, 4.155, 4.83875, 5.5225, 6.20625, 6.89],
+                [1.25, 1.9625, 2.675, 3.3875, 4.1, 4.8125, 5.525, 6.2375, 6.95]],
+               [[2.73, 3.06625, 3.4025, 3.73875, 4.075, 4.41125, 4.7475, 5.08375, 5.42],
+                [2.24, 2.68875, 3.1375, 3.58625, 4.035, 4.48375, 4.9325, 5.38125, 5.83],
+                [1.99, 2.505, 3.02, 3.535, 4.05, 4.565, 5.08, 5.595, 6.11],
+                [1.72, 2.31875, 2.9175, 3.51625, 4.115, 4.71375, 5.3125, 5.91125, 6.51],
+                [1.59, 2.23125, 2.8725, 3.51375, 4.155, 4.79625, 5.4375, 6.07875, 6.72],
+                [1.42, 2.09, 2.76, 3.43, 4.1, 4.77, 5.44, 6.11, 6.78]],
+               [[2.89, 3.18625, 3.4825, 3.77875, 4.075, 4.37125, 4.6675, 4.96375, 5.26],
+                [2.43, 2.83, 3.23, 3.63, 4.03, 4.43, 4.83, 5.23, 5.63],
+                [2.19, 2.655, 3.12, 3.585, 4.05, 4.515, 4.98, 5.445, 5.91],
+                [1.93, 2.47625, 3.0225, 3.56875, 4.115, 4.66125, 5.2075, 5.75375, 6.3],
+                [1.77, 2.365, 2.96, 3.555, 4.15, 4.745, 5.34, 5.935, 6.53],
+                [1.59, 2.2175, 2.845, 3.4725, 4.1, 4.7275, 5.355, 5.9825, 6.61]]]
+USD_PARAM_TS = np.array([0.0, 1.0, 2.0, 3.0, 5.0])
+USD_A = [[0.0145520600966057, 0.0129872854900715, 0.0113053431415981],
+         [0.0134748570248017, 0.0128907769293694, 0.0112651548589306],
+         [0.011573352659394, 0.0122196017111508, 0.010764379038105],
+         [0.0070554411390967, 0.0097915826853067, 0.0086699569420959]]
+USD_BETA = [[1.5175197006627835e-02, 1.0634920321914283e-01, 6.6674118846722419e-01],
+            [4.8368206184131085e-01, 1.7547946297795609e-02, -2.8323520431018540e-01],
+            [6.5149765993861006e-02, -8.1944955908784672e-02, -1.2933054838433659e-04],
+            [4.0771895182424006e-01, -7.2998068741307848e-02, -4.0049869808018973e-01]]
+USD_VOLVOL = [0.0972782445446557, 0.1071198215096482, 0.0744932897602731, 0.03]
+USD_R = [[1.0, 0.99, 0.97], [0.99, 1.0, 0.98], [0.97, 0.98, 1.0]]
+RATES_MAX_EXPIRY, RATES_REPEATS = 5.0, 5
+
+
+def _usd_swaption_cube(svt):
+    """(the USD SwOptionChain, re-centred on the flat-curve par rates as the
+    paper builds it, and its fitted MultiFactRateLogSvParams)."""
+    strikes = [[np.array(k) * 0.01 for k in row] for row in USD_STRIKES]
+    ivs = [[np.array(v) * 1e-4 for v in row] for row in USD_IVS]
+    chain = svt.SwOptionChain.create_swaption_chain_MF(
+        ccy="USD", tenors=USD_TENORS, tenors_ids=["2y", "5y", "10y"], ttms=USD_TTMS,
+        ttms_ids=["1y", "2y", "3y", "5y", "7y", "10y"], forwards=[f.copy() for f in USD_FORWARDS],
+        strikes_ttms=strikes, ivs=ivs, ticker="USD_aug_23")
+    params = svt.MultiFactRateLogSvParams(
+        sigma0=1.0, theta=1.0, kappa1=0.25, kappa2=0.25,
+        beta=svt.TermStructure(ts=USD_PARAM_TS, xs=np.array(USD_BETA)),
+        volvol=svt.TermStructure(ts=USD_PARAM_TS, xs=np.array(USD_VOLVOL)),
+        A=np.array(USD_A), R=np.array(USD_R),
+        basis=svt.NelsonSiegel(meanrev=0.55, key_terms=np.array([2.0, 5.0, 10.0])),
+        ccy="USD", vol_interpolation="BY_YIELD")
+    return chain, params
+
+
+def _rates_cube_phase(svt, graphs, chain) -> None:
+    """the factor-HJM swaption cube on the USD cube at full width: the 12-slice reprice
+    (one CUDA graph) captured and eager, the card against the CPU, normal ivols and their
+    gap to the market; the three cube greeks (one graph each); the adaptive tanh-sinh
+    pricer on the 1y row (one graph of the RK4 a padded node batch)."""
+    del chain
+    from stochvolmodels_torch.models.factor_hjm import rate_logsv_pricer as rates
+    from stochvolmodels_torch.models.factor_hjm.fast_calibration import swaption_chain_to_cube
+    from stochvolmodels_torch.ops import bachelier
+    from stochvolmodels_torch.utils.rate_core import generate_ttms_grid
+
+    smi = _smi_name_and_power()
+    sw_chain, params = _usd_swaption_cube(svt)
+    slices, fwds, strikes, market = swaption_chain_to_cube(sw_chain, max_expiry=RATES_MAX_EXPIRY)
+    _check(len(slices) == 12 and all(s.size == 9 for s in strikes), f"cube rows {slices}")
+    args = (params.sigma0, params.beta.xs, params.volvol.xs)
+    build, build_s = _timed_s(lambda: rates.make_swaption_cube_fn(params, slices, fwds, strikes,
+                                                                  device=DEVICE))
+    cube, mask = build
+    cpu_cube, _ = rates.make_swaption_cube_fn(params, slices, fwds, strikes, device="cpu")
+    replays = graphs.REPLAYS["rates_cube"]
+    first, capture_s, _, captured, eager = _captured_then_eager(
+        graphs, lambda: [cube(*args).cpu().numpy()])
+    _check(graphs.REPLAYS["rates_cube"] >= replays + 3, "the cube's graph did not replay")
+    captured_ms = _warm_ms(lambda: cube(*args).cpu().numpy(), RATES_REPEATS)
+    with graphs.eager():
+        eager_ms = _warm_ms(lambda: cube(*args).cpu().numpy(), 2)
+    prices = first[0]
+    cpu_prices = cpu_cube(*args).numpy()
+    fwd = np.asarray(fwds)[:, None]
+    _check(bool(np.all(np.isfinite(prices))) and bool(mask.all()), "cube prices not finite")
+    price_gap = float(np.max(np.abs(prices - cpu_prices) / fwd))
+    _check(price_gap <= 1e-12, f"cube prices card against CPU: {price_gap} x forward")
+    ttms = np.array([e for e, _ in slices])[:, None]
+    k = np.stack(strikes)
+    ivols = {}
+    for label, dev, px in (("card", DEVICE, prices), ("cpu", "cpu", cpu_prices)):
+        f64 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), device=dev)
+        ivols[label] = bachelier.infer_normal_implied_vol(
+            f64(fwd), f64(ttms), f64(k), f64(px), optiontype='C').cpu().numpy()
+    iv_gap = float(np.max(np.abs(ivols["card"] - ivols["cpu"])))
+    _check(bool(np.all(np.isfinite(ivols["card"]))) and iv_gap <= 1e-10,
+           f"cube normal ivols card against CPU: {iv_gap}")
+    rms_bp = 1e4 * float(np.sqrt(np.mean((ivols["card"] - np.stack(market)) ** 2)))
+    print(f"[rates-cube] USD swaption cube 18 Aug 2023, {len(slices)} slices x 9 strikes "
+          f"(S = {cube.key[4]} RK4 steps, {cube.key[5]} tanh-sinh nodes), the paper's fitted "
+          f"parameters: host panels {build_s:.3f} s; capture (first call) {capture_s:.3f} s; "
+          f"warm reprice captured {captured_ms:.2f} ms (median of {RATES_REPEATS}), eager "
+          f"{eager_ms:.2f} ms; captured profile: {_busy_line(captured)}; eager profile: "
+          f"{_busy_line(eager)}; captured equal bit for bit to eager; card against CPU max "
+          f"|dprice| / forward {price_gap:.2e}, normal ivols {iv_gap:.2e}; RMS gap of the model "
+          f"normal ivols to the market mids {rms_bp:.2f} bp | {smi}", flush=True)
+
+    greeks = ("vega", "beta_shift", "volvol_shift")
+    call = lambda: svt.swaption_cube_greeks(params, slices, fwds, strikes, device=DEVICE)[0]
+    replays = graphs.REPLAYS["rates_cube_greeks"]
+    gpu_greeks, greeks_capture_s = _timed_s(call)
+    again, greeks_warm_s = _timed_s(call)
+    _check(graphs.REPLAYS["rates_cube_greeks"] == replays + 2 * len(greeks),
+           "the greeks' graphs did not replay")
+    with graphs.eager():
+        eager_greeks, greeks_eager_s = _timed_s(call)
+    for g in ("price",) + greeks:
+        _check(np.array_equal(again[g], gpu_greeks[g]) and np.array_equal(eager_greeks[g],
+                                                                          gpu_greeks[g]),
+               f"cube greek {g}: a warm or eager call differs from the captured one")
+    cpu_greeks, greeks_cpu_s = _timed_s(lambda: svt.swaption_cube_greeks(
+        params, slices, fwds, strikes, device="cpu")[0])
+    greek_gap = 0.0
+    for g in greeks:
+        c, d = cpu_greeks[g], np.abs(gpu_greeks[g] - cpu_greeks[g])
+        _check(bool(np.all((d <= 1e-10 * np.abs(c)) | (d <= 1e-14))),
+               f"cube greek {g} card against CPU: {np.max(d)}")
+        greek_gap = max(greek_gap, float(np.max(d / np.maximum(np.abs(c), 1e-14))))
+    print(f"[rates-cube] swaption_cube_greeks {', '.join(greeks)} on the same cube (one jvp a "
+          f"greek, one CUDA graph each; each call freezes the host panels anew): first call "
+          f"(captures) {greeks_capture_s:.3f} s, warm {greeks_warm_s:.3f} s, eager "
+          f"{greeks_eager_s:.3f} s, CPU {greeks_cpu_s:.3f} s; captured equal bit for bit to "
+          f"eager; card against CPU max relative gap {greek_gap:.2e} (floor 1e-14) | {smi}",
+          flush=True)
+
+    calls = {"ff": 0}
+    solve = rates.compute_logsv_a_mgf_grid
+
+    def counted(*a, **kw):
+        calls["ff"] += 1
+        return solve(*a, **kw)
+    t_grid = generate_ttms_grid(sw_chain.ttms[:4])
+    row = dict(t_grid=t_grid, idxs=slice(0, 1))
+    captures = graphs.CAPTURES["rates_ode"]
+    rates.compute_logsv_a_mgf_grid = counted
+    try:
+        de_ivols, de_s = _timed_s(lambda: rates.RateLogSVPricer(device=DEVICE).price_chain(
+            sw_chain, params, **row))
+        ff_calls, de_graphs = calls["ff"], graphs.CAPTURES["rates_ode"] - captures
+        _, de_warm_s = _timed_s(lambda: rates.RateLogSVPricer(device=DEVICE).price_chain(
+            sw_chain, params, **row))
+    finally:
+        rates.compute_logsv_a_mgf_grid = solve
+    cpu_ivols, de_cpu_s = _timed_s(lambda: rates.RateLogSVPricer(device="cpu").price_chain(
+        sw_chain, params, **row))
+    # one ff batch of the row (1y x 2y, 16 nodes): the RK4's graph against its eager call
+    a, k0, k1, k2, beta, volvol, _ = params.transform_QA_params(expiry=1.0, tenor=2.0,
+                                                                 t_grid=t_grid)
+    p_nodes = torch.as_tensor(np.geomspace(1e-2, 1e3, 16), device=DEVICE)
+    ff_kw = dict(ttm=1.0, phi_grid=torch.complex(torch.full_like(p_nodes, -0.5), p_nodes),
+                 sigma0=params.sigma0, q=params.theta, times=t_grid[:k0.size], a0=a,
+                 a1=np.zeros_like(k0), kappa0=k0, kappa1=k1, kappa2=k2, beta=beta,
+                 volvol=volvol, b=np.zeros_like(k0))
+    replays = graphs.REPLAYS["rates_ode"]
+    ff_captured = rates.compute_logsv_a_mgf_grid(**ff_kw)[1]
+    with graphs.eager():
+        ff_eager = rates.compute_logsv_a_mgf_grid(**ff_kw)[1]
+    _check(graphs.REPLAYS["rates_ode"] == replays + 1 and torch.equal(ff_captured, ff_eager),
+           "the rates RK4's graph differs from its eager call")
+    de_gap = max(float(np.max(np.abs(g[0] - c[0]))) for g, c in zip(de_ivols, cpu_ivols))
+    _check(all(np.all(np.isfinite(g[0])) for g in de_ivols) and de_gap <= 1e-9,
+           f"DE row ivols card against CPU: {de_gap}")
+    print(f"[rates-cube] RateLogSVPricer.price_chain (adaptive tanh-sinh, 360 RK4 steps/yr) on "
+          f"the 1y row, 3 tenors x 9 strikes: {ff_calls} ff calls, {de_graphs} RK4 graphs "
+          f"captured; first call {de_s:.3f} s, warm {de_warm_s:.3f} s (graphs replayed), CPU "
+          f"{de_cpu_s:.3f} s; card against CPU max |d normal ivol| {de_gap:.2e}; one 16-node "
+          f"batch's RK4 graph equal bit for bit to its eager call | {smi}",
+          flush=True)
+
+
 # the phases that run in the side process, in order: none launches a hand-written kernel
-SIDE_PHASES = ("greeks", "terminal-models", "sweep")
+SIDE_PHASES = ("greeks", "terminal-models", "sweep", "rates-cube")
 
 
 def _side_phases(conn) -> None:
@@ -1516,7 +1726,7 @@ def _side_phases(conn) -> None:
 
         chain = svt.get_btc_test_chain_data()
         phases = {"greeks": _greeks_phase, "terminal-models": _terminal_models_phase,
-                  "sweep": _sweep_phase}
+                  "sweep": _sweep_phase, "rates-cube": _rates_cube_phase}
         walls = {}
         for name in SIDE_PHASES:
             t0 = time.perf_counter()

@@ -31,7 +31,12 @@ from stochvolmodels_torch.config import (  # noqa: F401
     decode_optiontypes,
     encode_optiontypes,
 )
-from stochvolmodels_torch.data.option_chain import ChainGrid, OptionChain, OptionSlice  # noqa: F401
+from stochvolmodels_torch.data.option_chain import (  # noqa: F401
+    ChainGrid,
+    OptionChain,
+    OptionSlice,
+    SwOptionChain,
+)
 from stochvolmodels_torch.data.sample_chains import (  # noqa: F401
     get_btc_test_chain_data,
     get_gld_test_chain_data,
@@ -48,6 +53,7 @@ from stochvolmodels_torch.interop import (  # noqa: F401
     qmc_panels_from_numpy,
     heston_params_from_numpy,
     params_from_numpy,
+    rate_params_from_numpy,
     tdist_params_from_numpy,
 )
 from stochvolmodels_torch.models.gmm import GmmParams, GmmPricer  # noqa: F401
@@ -72,6 +78,20 @@ from stochvolmodels_torch.models.greeks import (  # noqa: F401
     heston_chain_greeks,
     logsv_chain_greeks,
     logsv_mc_chain_greeks,
+    swaption_cube_greeks,
+)
+from stochvolmodels_torch.models.factor_hjm import (  # noqa: F401
+    Cheyette1D,
+    CheyettePEND,
+    FutSettleType,
+    Measure,
+    MultiFactRateLogSvParams,
+    NelsonSiegel,
+    RateFutLogSVPricer,
+    RateLogSVPricer,
+    RateLogSvParams,
+    TermStructure,
+    UnderlyingType,
 )
 from stochvolmodels_torch.models.logsv.affine import (  # noqa: F401
     ExpansionOrder,

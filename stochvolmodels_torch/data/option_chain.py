@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from stochvolmodels_torch.config import encode_optiontypes
+from stochvolmodels_torch.ops import bachelier as bachel
 from stochvolmodels_torch.ops import bsm
 from stochvolmodels_torch.utils.funcs import SeriesLike, npad, unpad
 from stochvolmodels_torch.utils.var_swap import compute_var_swap_strike
@@ -312,3 +313,151 @@ class OptionChain:
             discfactors=grid.discfactors, strikes_ttms=grid.strikes,
             optiontypes_ttms=grid.optioncodes, model_prices_ttms=prices_panel)
         return self.unpad_panel(ivols)
+
+
+@dataclass
+class SwOptionChain:
+    """swaption cube container: expiries x swap tenors x strikes, the
+    counterpart of the JAX package's ``SwOptionChain`` (host numpy)."""
+    ccy: str
+    ttms: np.ndarray
+    tenors: np.ndarray
+    ttms_ids: Sequence[str]
+    tenors_ids: Sequence[str]
+    forwards: Sequence[np.ndarray]
+    strikes_ttms: Sequence[Sequence[np.ndarray]]
+    bid_ivs: Sequence[Sequence[np.ndarray]]
+    ask_ivs: Sequence[Sequence[np.ndarray]]
+    ticker: Optional[str] = None
+
+    def __post_init__(self):
+        assert self.ttms.size == len(self.ttms_ids)
+        assert self.tenors.size == len(self.tenors_ids)
+        assert np.all(np.diff(self.ttms) >= 0) and np.all(self.ttms >= 0)
+        assert np.all(np.diff(self.tenors) >= 0) and np.all(self.tenors >= 0)
+        self.optiontypes_ttms = tuple(np.repeat('C', self.strikes_ttms[0][0].size)
+                                      for _ in self.ttms)
+        assert len(self.strikes_ttms) == len(self.tenors_ids)
+        assert len(self.bid_ivs) == len(self.ask_ivs) == len(self.tenors_ids)
+        assert len(self.strikes_ttms[0]) == len(self.ttms_ids)
+        assert self.strikes_ttms[0][0].ndim == 1
+        assert (len(self.forwards) == len(self.tenors_ids)
+                and self.forwards[0].size == len(self.ttms_ids))
+        for i in range(len(self.tenors_ids)):
+            for j in range(len(self.ttms_ids)):
+                assert self.strikes_ttms[i][j].size == self.strikes_ttms[0][0].size
+                assert self.bid_ivs[i][j].size == self.ask_ivs[0][0].size
+
+    @classmethod
+    def create_swaption_chain_MF(cls, ccy: str, tenors: np.ndarray, tenors_ids,
+                                 ttms: np.ndarray, ttms_ids, forwards,
+                                 strikes_ttms, ivs, ticker: str) -> "SwOptionChain":
+        """build a cube from model data, re-centring strikes on the flat-curve
+        par rates (option_chain.py:382-416)."""
+        from stochvolmodels_torch.utils.rate_core import (
+            get_default_swap_term_structure,
+            swap_rate,
+        )
+        for idx_tenor, tenor in enumerate(tenors):
+            for idx_ttm, ttm in enumerate(ttms):
+                ts_sw = get_default_swap_term_structure(ttm, tenor)
+                par = swap_rate(ccy, ttm, ts_sw)
+                strikes_ttms[idx_tenor][idx_ttm] = (strikes_ttms[idx_tenor][idx_ttm]
+                                                    - forwards[idx_tenor][idx_ttm] + par)
+                forwards[idx_tenor][idx_ttm] = par
+        return cls(ccy=ccy, ttms=ttms, tenors=tenors, ttms_ids=ttms_ids,
+                   tenors_ids=tenors_ids, forwards=forwards,
+                   strikes_ttms=strikes_ttms, bid_ivs=ivs, ask_ivs=ivs,
+                   ticker=ticker)
+
+    def get_mid_vols(self):
+        return [[0.5 * (self.bid_ivs[i][j] + self.ask_ivs[i][j])
+                 for j in range(len(self.ttms_ids))]
+                for i in range(len(self.tenors_ids))]
+
+    def get_chain_atm_vols(self):
+        atm_vols = []
+        for forwards_tenor, strikes_tenor, vols_tenor in zip(self.forwards,
+                                                             self.strikes_ttms,
+                                                             self.get_mid_vols()):
+            atm = np.array([np.interp(x=f, xp=s, fp=v) for f, s, v in
+                            zip(forwards_tenor, strikes_tenor, vols_tenor)])
+            atm_vols.append(atm)
+        return atm_vols
+
+    def get_chain_vegas(self, is_unit_ttm_vega: bool = False):
+        """normal vegas [tenor][expiry] at the mid vols; numpy in and out:
+        the port's vega runs on host tensors."""
+        ttms = np.ones_like(self.ttms) if is_unit_ttm_vega else self.ttms
+        host = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64))
+        vegas_chain = []
+        for forwards, strikes_ttms, mid_vols in zip(self.forwards,
+                                                    self.strikes_ttms,
+                                                    self.get_mid_vols()):
+            vegas = [bachel.compute_normal_slice_vegas(
+                ttm=host(t), forward=host(f), strikes=host(s), vols=host(v)).numpy()
+                for t, f, s, v in zip(ttms, forwards, strikes_ttms, mid_vols)]
+            vegas_chain.append(vegas)
+        return vegas_chain
+
+    def reduce_strikes(self, nb_otms: int) -> "SwOptionChain":
+        """keep nb_otms OTM strikes either side of ATM (option_chain.py:418-441)."""
+        nb_strikes = int((self.strikes_ttms[0][0].size - 1) / 2)
+        if nb_otms > nb_strikes:
+            raise ValueError(f"nb_otms={nb_otms} > otm strikes={nb_strikes}")
+        rng = range(nb_strikes - nb_otms, nb_strikes + nb_otms + 1)
+        pick = lambda seq: [[seq[i][j][rng] for j in range(len(self.ttms_ids))]
+                            for i in range(len(self.tenors_ids))]
+        return SwOptionChain(ccy=self.ccy, ttms=self.ttms, tenors=self.tenors,
+                             ttms_ids=self.ttms_ids, tenors_ids=self.tenors_ids,
+                             forwards=self.forwards,
+                             strikes_ttms=pick(self.strikes_ttms),
+                             bid_ivs=pick(self.bid_ivs),
+                             ask_ivs=pick(self.ask_ivs), ticker=self.ticker)
+
+    def reduce_ttms(self, ttms_ids) -> "SwOptionChain":
+        """restrict the cube to the listed expiry ids (option_chain.py:443-467)."""
+        if not np.all(np.isin(ttms_ids, self.ttms_ids)):
+            raise ValueError("Expiries to be removed not present in chain")
+        idx_ttms = np.where(np.isin(self.ttms_ids, ttms_ids))[0]
+        pick = lambda seq: [[seq[i][j] for j in idx_ttms]
+                            for i in range(len(self.tenors_ids))]
+        forwards = [np.array([self.forwards[i][j] for j in idx_ttms])
+                    for i in range(len(self.tenors_ids))]
+        return SwOptionChain(ccy=self.ccy, ttms=self.ttms[idx_ttms],
+                             tenors=self.tenors, ttms_ids=list(ttms_ids),
+                             tenors_ids=self.tenors_ids, forwards=forwards,
+                             strikes_ttms=pick(self.strikes_ttms),
+                             bid_ivs=pick(self.bid_ivs),
+                             ask_ivs=pick(self.ask_ivs), ticker=self.ticker)
+
+    def reduce_tenors(self, tenors_ids) -> "SwOptionChain":
+        """restrict the cube to the listed tenor ids (option_chain.py:469-493)."""
+        if not np.all(np.isin(tenors_ids, self.tenors_ids)):
+            raise ValueError("Tenors to be removed not present in chain")
+        idx_tenors = np.where(np.isin(self.tenors_ids, tenors_ids))[0]
+        pick = lambda seq: [[seq[i][j] for j in range(len(self.ttms_ids))]
+                            for i in idx_tenors]
+        forwards = [np.asarray(self.forwards[i]) for i in idx_tenors]
+        return SwOptionChain(ccy=self.ccy, ttms=self.ttms,
+                             tenors=self.tenors[idx_tenors],
+                             ttms_ids=self.ttms_ids,
+                             tenors_ids=[self.tenors_ids[i] for i in idx_tenors],
+                             forwards=forwards,
+                             strikes_ttms=pick(self.strikes_ttms),
+                             bid_ivs=pick(self.bid_ivs),
+                             ask_ivs=pick(self.ask_ivs), ticker=self.ticker)
+
+    @classmethod
+    def remap_to_inc_delta(cls, vols):
+        """negate the delta index of ``vols`` (a pandas Series or a
+        :class:`SeriesLike`) in place, and return it."""
+        index = [-x for x in vols.index]
+        vols.index = np.asarray(index, dtype=float) if isinstance(vols, SeriesLike) else index
+        return vols
+
+    @classmethod
+    def remap_to_pc_delta(cls, inc_grid: np.ndarray) -> np.ndarray:
+        put_cond = inc_grid < -0.5
+        call_cond = inc_grid >= -0.5
+        return np.concatenate((-inc_grid[put_cond] - 1.0, -inc_grid[call_cond]))

@@ -6,8 +6,8 @@ Nothing here imports the JAX package: callers hand over what its objects hold
 ``HawkesJDParams.to_dict()``, ``GmmParams.to_dict()``,
 ``TdistParams.to_dict()``, the ragged arrays of an ``OptionChain``, a vol
 backbone Series, the uint32 QMC panels of LogSV's and Heston's Sobol
-engines, two streams a step), so the same state can be fed to both
-packages.
+engines, two streams a step, the arrays of a ``MultiFactRateLogSvParams``),
+so the same state can be fed to both packages.
 """
 from __future__ import annotations
 
@@ -17,6 +17,11 @@ import numpy as np
 import torch
 
 from stochvolmodels_torch.data.option_chain import OptionChain
+from stochvolmodels_torch.models.factor_hjm.rate_factor_basis import CheyettePEND, NelsonSiegel
+from stochvolmodels_torch.models.factor_hjm.rate_logsv_params import (
+    MultiFactRateLogSvParams,
+    TermStructure,
+)
 from stochvolmodels_torch.models.gmm import GmmParams
 from stochvolmodels_torch.models.hawkes_jd import HawkesJDParams
 from stochvolmodels_torch.models.heston import HestonParams
@@ -68,6 +73,37 @@ def gmm_params_from_numpy(d: Mapping[str, Any]) -> GmmParams:
 def tdist_params_from_numpy(d: Mapping[str, Any]) -> TdistParams:
     """TdistParams from the JAX package's ``TdistParams.to_dict()``."""
     return TdistParams(**{k: float(d[k]) for k in ("drift", "vol", "nu", "ttm")})
+
+
+def rate_params_from_numpy(d: Mapping[str, Any]) -> MultiFactRateLogSvParams:
+    """MultiFactRateLogSvParams from the arrays of the JAX package's.
+
+    ``d`` holds ``sigma0``, ``theta``, ``kappa1``, ``kappa2``, ``q`` (or
+    None), the term structures ``beta_ts``/``beta_xs`` and
+    ``volvol_ts``/``volvol_xs``, ``A``, ``R``, ``ccy``, and the basis:
+    ``basis`` = ``"NELSON-SIEGEL"`` with ``meanrev`` and ``key_terms``, or
+    ``"CHEYETTE-PEND"`` with ``mrv0``, ``mrv_delta`` and ``key_terms``;
+    optionally ``vol_interpolation``.  Arrays are copied, so the two
+    packages' parameters never share memory.
+    """
+    arr = lambda k: np.array(d[k], dtype=float)
+    kind = d.get("basis", "NELSON-SIEGEL")
+    if kind == "NELSON-SIEGEL":
+        basis = NelsonSiegel(meanrev=float(d["meanrev"]), key_terms=arr("key_terms"))
+    elif kind == "CHEYETTE-PEND":
+        basis = CheyettePEND(mrv0=float(d["mrv0"]), mrv_delta=float(d["mrv_delta"]),
+                             key_terms=arr("key_terms"))
+    else:
+        raise NotImplementedError(f"basis {kind!r}")
+    q = d.get("q")
+    return MultiFactRateLogSvParams(
+        sigma0=float(d["sigma0"]), theta=float(d["theta"]), kappa1=float(d["kappa1"]),
+        kappa2=float(d["kappa2"]),
+        beta=TermStructure(ts=arr("beta_ts"), xs=arr("beta_xs")),
+        volvol=TermStructure(ts=arr("volvol_ts"), xs=arr("volvol_xs")),
+        A=arr("A"), R=arr("R"), basis=basis, ccy=str(d["ccy"]),
+        vol_interpolation=str(d.get("vol_interpolation", "BY_YIELD")),
+        q=None if q is None else float(q))
 
 
 def chain_from_numpy(ttms: Sequence[float],

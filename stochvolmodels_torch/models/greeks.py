@@ -25,7 +25,9 @@ parameters, so the key does not move with them.
 ``logsv_mc_chain_greeks`` is the pathwise estimator: the jvp runs through
 the float64 eager Euler loop at a fixed seed (every evaluation draws the same
 normals), not through the CUDA kernel.  The factor-HJM
-``swaption_cube_greeks`` is not ported: it waits for the rates suite.
+``swaption_cube_greeks`` differentiates the swaption cube pricer by one jvp
+a greek, on the pricer's frozen panels, each captured as one CUDA graph on a
+card.
 """
 from __future__ import annotations
 
@@ -382,3 +384,80 @@ def heston_chain_greeks(option_chain: OptionChain,
         out["theta_calendar"] = _calendar_theta(make_price_fn, key_theta, option_chain, grid,
                                                 values, ttms_static, in_vols)
     return out
+
+
+#: the cube greeks: the argument of the cube pricer (sigma0, beta_xs,
+#: volvol_xs) that each one bumps by +1 throughout
+_CUBE_GREEKS = {"vega": 0, "beta_shift": 1, "volvol_shift": 2}
+_CUBE_GREEKS_TRACED = ("A_shift", "kappa1", "kappa2")
+
+
+def _cube_greek_panels(greek: str, *inputs):
+    """(price, d price) of the cube's ``_cube_price`` along ``greek``'s
+    tangent: ones on the bumped argument, zeros on the other two."""
+    from stochvolmodels_torch.models.factor_hjm.rate_logsv_pricer import _cube_price
+
+    primals, consts = inputs[:3], inputs[3:]
+    which = _CUBE_GREEKS[greek]
+    tangents = tuple(torch.ones_like(x) if i == which else torch.zeros_like(x)
+                     for i, x in enumerate(primals))
+    price, sens = jvp(lambda *args: _cube_price(*args, *consts)[0], primals, tangents)
+    return price, sens
+
+
+def swaption_cube_greeks(params,
+                         slices,
+                         forwards,
+                         strikes_slices,
+                         greeks: Tuple[str, ...] = ("vega", "beta_shift", "volvol_shift"),
+                         traced: bool = False,
+                         device="cuda",
+                         **cube_kwargs):
+    """model-consistent swaption-cube sensitivities of the factor-HJM rate
+    LogSV model, by ``torch.func.jvp`` over the cube pricer
+    (``factor_hjm.rate_logsv_pricer.make_swaption_cube_fn``).
+
+    Greeks:
+
+    - ``'vega'``          dP/d(sigma0), the volatility-state vega;
+    - ``'beta_shift'``    dP/d(parallel shift of the skew term structure
+                          beta(t), all segments and factors bumped +1
+                          together);
+    - ``'volvol_shift'``  dP/d(parallel shift of volvol(t)).
+
+    Returns ``(panels, mask)``: ``panels['price']`` and one (P, K_max) panel
+    per greek (annuity-normalized price units, as the cube pricer's), numpy,
+    and ``mask`` the strike-validity panel.  Every greek runs on the same
+    frozen structural panels as the pricer; on a card each is one captured
+    CUDA graph (``"rates_cube_greeks"``, keyed by the cube's shapes and the
+    greek), so a warm reprice costs one replay a greek.  ``traced=True``
+    (greeks through the structural panels, and A_shift/kappa1/kappa2) is not
+    ported yet: it needs ``qa_traced`` (ROADMAP section 1, item 4).
+    """
+    from stochvolmodels_torch.models.factor_hjm.rate_logsv_pricer import (
+        NOT_PORTED,
+        make_swaption_cube_fn,
+    )
+    if traced:
+        raise NotImplementedError(f"swaption_cube_greeks(traced=True) is {NOT_PORTED}")
+    for g in greeks:
+        if g not in _CUBE_GREEKS:
+            raise ValueError(
+                f"unknown greek {g!r}; expected one of {tuple(_CUBE_GREEKS)}"
+                + (" (A_shift/kappa1/kappa2 need traced=True)"
+                   if g in _CUBE_GREEKS_TRACED else ""))
+    cube, mask = make_swaption_cube_fn(params, slices, forwards, strikes_slices,
+                                       device=device, **cube_kwargs)
+    inputs = cube.primals() + cube.consts
+    panels: Dict[str, np.ndarray] = {}
+    for g in greeks:
+        fn = lambda *t, g=g: _cube_greek_panels(g, *t)
+        if graphs.use_graph(inputs[0]):
+            price, sens = graphs.run_captured("rates_cube_greeks", cube.key + (g,), fn, inputs)
+        else:
+            price, sens = fn(*inputs)
+        panels.setdefault("price", price.detach().cpu().numpy())
+        panels[g] = sens.detach().cpu().numpy()
+    if "price" not in panels:
+        panels["price"] = cube(*inputs[:3]).cpu().numpy()
+    return panels, mask.cpu().numpy()

@@ -11,8 +11,10 @@ chain reprice, plain or risk-premia, and the Hawkes LM's initial state and
 its one iteration, replayed once per iteration (``models/hawkes_jd.py``),
 the LogSV Q_VAR reprice, densities and QMC slices and the Heston QMC slices
 (``models/logsv/pricer.py``, ``models/heston.py``), each chain-greeks
-program (``models/greeks.py``) and the exponential-Euler affine solve
-(``models/logsv/affine.py``); each is one graph per chain shape and static
+program (``models/greeks.py``), the exponential-Euler affine solve
+(``models/logsv/affine.py``), the factor-HJM swaption cube reprice and each
+of its greeks and the rates Riccati RK4 of the adaptive tanh-sinh pricer
+(``models/factor_hjm/``); each is one graph per shape and static
 configuration.
 
 A graph replays the exact kernels that the eager call launches, on the same
@@ -38,6 +40,8 @@ import torch
 MAX_GRAPHS = 16
 # graph replays by the name of the call, for launch checks
 REPLAYS: collections.Counter = collections.Counter()
+# graph captures by the name of the call
+CAPTURES: collections.Counter = collections.Counter()
 
 _capture_enabled = True
 _graphs: "collections.OrderedDict[Hashable, _Captured]" = collections.OrderedDict()
@@ -115,6 +119,7 @@ def run_captured(name: str, key: Hashable, fn: Callable[..., Tuple[torch.Tensor,
         except RuntimeError as exc:
             raise RuntimeError(f"{name}: CUDA graph capture failed: {exc}") from exc
         _graphs[full_key] = entry
+        CAPTURES[name] += 1
     else:
         _graphs.move_to_end(full_key)
     REPLAYS[name] += 1

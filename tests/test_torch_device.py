@@ -8,8 +8,10 @@
     the calibrations (LogSV SLSQP, LM and Adam; Heston SLSQP and LM; Hawkes
     SLSQP, LM and the risk-premia fit), the Q_VAR pricer and the densities,
     the QMC chain MC, the vol paths and the MC calibration, the Bachelier
-    and Student-t analytics, the GMM and Student-t pricers and fits, and
-    the LogSV and Heston LM sweeps.
+    and Student-t analytics, the GMM and Student-t pricers and fits, the
+    LogSV and Heston LM sweeps, and the factor-HJM swaption slice and cube
+    pricers, the cube greeks, the adaptive tanh-sinh pricer and both rate
+    pricers.
 """
 import importlib
 import inspect
@@ -61,7 +63,12 @@ def test_no_device_parameter_defaults_to_the_cpu():
                  "models.gmm.gmm_vanilla_chain_pricer",
                  "models.tdist.tdist_vanilla_chain_pricer",
                  "parallel.sweep.calibrate_logsv_lm_sweep",
-                 "parallel.sweep.calibrate_heston_lm_sweep"):
+                 "parallel.sweep.calibrate_heston_lm_sweep",
+                 "models.factor_hjm.rate_logsv_pricer.make_swaption_slice_fn",
+                 "models.factor_hjm.rate_logsv_pricer.make_swaption_cube_fn",
+                 "models.factor_hjm.rate_logsv_pricer.logsv_chain_de_pricer",
+                 "models.factor_hjm.rate_logsv_pricer.futures_conv_adj",
+                 "models.greeks.swaption_cube_greeks"):
         assert f"stochvolmodels_torch.{name}" in with_device, name
     not_cuda = {name: d for name, d in with_device.items()
                 if d is None or torch.device(d).type != "cuda"}
@@ -153,6 +160,45 @@ def default_device_calls():
         "calibrate_logsv_lm_sweep": lambda: logsv_lm_sweep([chain, chain], svt.LOGSV_BTC_PARAMS),
         "calibrate_heston_lm_sweep": lambda: heston_lm_sweep([chain, chain],
                                                              svt.BTC_HESTON_PARAMS),
+        **rate_default_device_calls(),
+    }
+
+
+def rate_default_device_calls():
+    from stochvolmodels_torch.models.factor_hjm import rate_logsv_pricer as rates
+    from stochvolmodels_torch.utils.rate_core import generate_ttms_grid
+
+    ts = np.array([0.0, 1.0, 2.0])
+    params = svt.MultiFactRateLogSvParams(
+        sigma0=1.0, theta=1.0, kappa1=1.0, kappa2=1.0,
+        beta=svt.TermStructure(ts=ts, xs=np.array([[0.1, -0.05, 0.0]] * 2)),
+        volvol=svt.TermStructure(ts=ts, xs=np.array([0.3, 0.3])), A=np.full(3, 0.01),
+        R=np.eye(3), basis=svt.NelsonSiegel(meanrev=0.25, key_terms=np.array([1.0, 5.0, 10.0])),
+        ccy="USD")
+    strikes = np.array([-0.01, 0.0, 0.01])
+    t_grid = generate_ttms_grid(np.array([1.0]))
+    chain = svt.SwOptionChain(
+        ccy="USD", ttms=np.array([1.0]), tenors=np.array([1.0, 5.0, 10.0]), ttms_ids=["1y"],
+        tenors_ids=["1y", "5y", "10y"], forwards=[np.zeros(1)] * 3,
+        strikes_ttms=[[strikes]] * 3, bid_ivs=[[np.full(3, 0.01)]] * 3,
+        ask_ivs=[[np.full(3, 0.01)]] * 3)
+    futures = type("FuturesRows", (), dict(ttms=np.array([1.0]), forwards=np.array([0.045]),
+                                           strikes_ttms=[0.045 + strikes],
+                                           optiontypes_ttms=[np.repeat('C', 3)]))
+    return {
+        "make_swaption_slice_fn": lambda: rates.make_swaption_slice_fn(
+            params, t_grid, ttm=1.0, tenor=1.0, forward=0.0, strikes=strikes),
+        "make_swaption_cube_fn": lambda: rates.make_swaption_cube_fn(
+            params, [(1.0, 1.0)], [0.0], [strikes]),
+        "swaption_cube_greeks": lambda: svt.swaption_cube_greeks(
+            params, [(1.0, 1.0)], [0.0], [strikes]),
+        "logsv_chain_de_pricer": lambda: rates.logsv_chain_de_pricer(
+            params, t_grid, np.array([1.0]), [np.zeros(1)] * 3, [[strikes]] * 3,
+            [np.repeat('C', 3)]),
+        "RateLogSVPricer.price_chain": lambda: svt.RateLogSVPricer().price_chain(
+            chain, params, t_grid=t_grid, idxs=slice(0, 1)),
+        "RateFutLogSVPricer.price_chain": lambda: svt.RateFutLogSVPricer().price_chain(
+            futures, params, t_grid=t_grid, idxs=slice(0, 1)),
     }
 
 
@@ -183,7 +229,11 @@ def default_device_calls():
                                   "GmmPricer.calibrate_model_params_to_chain",
                                   "TdistPricer.price_chain",
                                   "TdistPricer.calibrate_model_params_to_chain",
-                                  "calibrate_logsv_lm_sweep", "calibrate_heston_lm_sweep"])
+                                  "calibrate_logsv_lm_sweep", "calibrate_heston_lm_sweep",
+                                  "make_swaption_slice_fn", "make_swaption_cube_fn",
+                                  "swaption_cube_greeks", "logsv_chain_de_pricer",
+                                  "RateLogSVPricer.price_chain",
+                                  "RateFutLogSVPricer.price_chain"])
 def test_default_device_call_raises_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("this PyTorch has a CUDA device: the default device runs")

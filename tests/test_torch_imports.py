@@ -83,6 +83,32 @@ tdist = svt.TdistPricer(device="cpu").price_chain(two, svt.TdistParams(0.0, 0.8,
                                              device="cpu")
 assert torch.allclose(normal, 0.05 * ones) and torch.isfinite(t_price).all(), (normal, t_price)
 assert all(np.isfinite(p).all() for p in gmm + tdist) and np.isfinite(sweep_cost)
+from stochvolmodels_torch.models.factor_hjm import logsv_chain_de_pricer, make_swaption_cube_fn
+from stochvolmodels_torch.models.factor_hjm.fast_calibration import swaption_chain_to_cube
+from stochvolmodels_torch.utils.funcs import SeriesLike
+from stochvolmodels_torch.utils.rate_core import generate_ttms_grid
+ts = np.array([0.0, 1.0, 2.0])
+rates = svt.rate_params_from_numpy(dict(
+    sigma0=1.0, theta=1.0, kappa1=1.0, kappa2=1.0, q=None, beta_ts=ts,
+    beta_xs=np.array([[0.2, -0.1, 0.0]] * 2), volvol_ts=ts, volvol_xs=np.array([0.4, 0.3]),
+    A=np.full(3, 0.01), R=np.eye(3), ccy="USD", basis="NELSON-SIEGEL", meanrev=0.25,
+    key_terms=np.array([1.0, 5.0, 10.0])))
+k = np.array([-0.01, 0.0, 0.01])
+swaptions = svt.SwOptionChain(
+    ccy="USD", ttms=np.array([1.0, 2.0]), tenors=np.array([1.0, 5.0]), ttms_ids=["1y", "2y"],
+    tenors_ids=["1y", "5y"], forwards=[np.full(2, 0.04)] * 2, strikes_ttms=[[0.04 + k] * 2] * 2,
+    bid_ivs=[[np.full(3, 0.01)] * 2] * 2, ask_ivs=[[np.full(3, 0.01)] * 2] * 2)
+slices, fwds, strikes, _ = swaption_chain_to_cube(swaptions)
+cube, mask = make_swaption_cube_fn(rates, slices, fwds, strikes, device="cpu")
+panels, _ = svt.swaption_cube_greeks(rates, slices, fwds, strikes, greeks=("vega",),
+                                     device="cpu")
+_, de_ivols = logsv_chain_de_pricer(rates, generate_ttms_grid(np.array([1.0])), np.array([1.0]),
+                                    [np.zeros(1)] * 3, [[k]] * 3, [np.repeat('C', 3)],
+                                    device="cpu")
+remapped = svt.SwOptionChain.remap_to_inc_delta(SeriesLike(values=k, index=np.array([0.25, 0.5, 0.75])))
+assert torch.isfinite(cube(1.0, rates.beta.xs, rates.volvol.xs)).all() and mask.all()
+assert np.all(panels["vega"] > 0.0) and np.all(np.isfinite(swaptions.get_chain_vegas()[0][0]))
+assert all(np.all((iv[0] > 0.001) & (iv[0] < 0.05)) for iv in de_ivols), de_ivols
 loaded = sorted(m for m, mod in sys.modules.items() if m.split(".")[0] in BLOCKED and mod is not None)
 assert not loaded, loaded
 print("ok", len(prices))
@@ -94,8 +120,10 @@ def test_port_imports_and_prices_without_jax_pandas_matplotlib_triton():
     plain kernel versions, one Heston and one Hawkes LM iteration, the
     LogSV Q_VAR prices, a density, the QMC chain MC and the varswap
     backbone fit, a Bachelier price and implied vol, a Student-t price, the
-    GMM and Student-t chain prices and one Heston LM sweep iteration, in a
-    process that cannot import jax, pandas, matplotlib or triton."""
+    GMM and Student-t chain prices and one Heston LM sweep iteration, and
+    the factor-HJM swaption cube, its vega, the adaptive tanh-sinh pricer on
+    one expiry and the swaption chain's vegas and delta remap, in a process
+    that cannot import jax, pandas, matplotlib or triton."""
     out = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, capture_output=True,
                          text=True, timeout=300, env=dict(os.environ, PYTHONPATH=str(REPO)))
     assert out.returncode == 0, out.stderr

@@ -19,12 +19,14 @@ JAX_INIT = Path(__file__).resolve().parents[1] / "stochvolmodels_tpu" / "__init_
 # numbers as (re, im) pairs, the float32 solvers, threefry keys, jitted
 # wrappers and the mixed-precision reduction; patterns
 TPU_ONLY = ("cplx", "df32*", "*_jit", "key_from_seed", "_nansum_re_mixed")
-# the factor-HJM rates suite and its chain types (ROADMAP section 1, item 4),
-# until that suite lands
-FACTOR_HJM = ("Cheyette1D", "CheyettePEND", "FutSettleType", "Measure",
-              "MultiFactRateLogSvParams", "NelsonSiegel", "RateFutLogSVPricer",
-              "RateLogSVPricer", "RateLogSvParams", "TermStructure", "UnderlyingType",
-              "FutOptionChain", "SwOptionChain", "swaption_cube_greeks")
+# the factor-HJM names still to port (ROADMAP section 1, item 4): the futures
+# option chain waits for the rate MC and ivol helpers
+FACTOR_HJM = ("FutOptionChain",)
+# the factor-HJM names the port has
+FACTOR_HJM_PORTED = ("Cheyette1D", "CheyettePEND", "FutSettleType", "Measure",
+                     "MultiFactRateLogSvParams", "NelsonSiegel", "RateFutLogSVPricer",
+                     "RateLogSVPricer", "RateLogSvParams", "TermStructure", "UnderlyingType",
+                     "SwOptionChain", "swaption_cube_greeks")
 
 
 def jax_top_level_names():
@@ -73,3 +75,10 @@ def test_each_listed_exception_is_still_missing_from_the_port(name):
 def test_the_ten_names_once_missing_resolve_to_the_ports_functions(name):
     fn = getattr(svt, name)
     assert callable(fn) and fn.__module__.startswith("stochvolmodels_torch."), fn
+
+
+@pytest.mark.parametrize("name", FACTOR_HJM_PORTED)
+def test_each_factor_hjm_name_resolves_to_the_ports_object(name):
+    assert name in dict(jax_top_level_names()), f"{name} is not a JAX top-level name"
+    obj = getattr(svt, name)
+    assert obj.__module__.startswith("stochvolmodels_torch."), obj
