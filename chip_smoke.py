@@ -69,11 +69,20 @@ against the CPU in price and normal ivol, the RMS gap to the market mids;
 the three cube greeks (one graph each) captured against eager and the card
 against the CPU; the adaptive tanh-sinh pricer's 1y row (its ff calls and
 RK4 graphs, one batch's graph against its eager call, the card against the
-CPU).  The greeks, the terminal models, the sweeps and the rates cube run
-in a side process started after the kernel timings (the rough rules run
-before it), beside the calibration and graph phases: all are bound by host
-launch work; the walls of the phases that overlap include the other
-process's load on the card.  Each phase prints one line, and a ``[phase-walls]`` line their walls; any
+CPU).  Then the rest of the factor-HJM suite on the same cube: the traced
+reprice (one graph) captured, eager and against the CPU, the six traced
+greeks, the A prefit through the traced graph, the 24-iteration cube LM from
+a perturbed start (its iteration one graph, with its node count; two
+iterations captured against eager bit for bit and the card against the CPU)
+and the pricer's fit; then the rates Monte Carlo: calc_mc_vols on the 1y row
+at 100,000 paths against the DE pricer, the annuity and T-forward paths at
+injected normals card against CPU, and one futures expiry against the DE
+futures pricer.  The greeks, the terminal models, the sweeps and the rates
+cube run in a side process started after the kernel timings (the rough rules
+run before it), and the rates calibration and Monte Carlo in a second one,
+beside the calibration and graph phases: all are bound by host launch work;
+the walls of the phases that overlap include the other processes' load on
+the card.  Each phase prints one line, and a ``[phase-walls]`` line their walls; any
 failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 it exits 1 and prints no result.
@@ -1711,13 +1720,303 @@ def _rates_cube_phase(svt, graphs, chain) -> None:
           flush=True)
 
 
+RATES_CALIB_ITERS, RATES_CALIB_YEAR_STEPS, RATES_PREFIT_OUTER = 24, 48, 4
+# calibrate_model_params_to_chain's default is 360 steps/yr; its warm wall there was predicted
+# over 30 s (PERF.md section 6), so the smoke runs it at the cube LM's 48
+RATES_PRICER_YEAR_STEPS = 48
+RATES_MC_PATHS, RATES_MC_CHECK_PATHS = 100_000, 4096
+TRACED_GREEKS = ("vega", "A_shift", "beta_shift", "volvol_shift", "kappa1", "kappa2")
+
+
+def _rates_start(params):
+    """the calibration's start point: the fitted parameters with beta x 0.5
+    and volvol x 1.3 on every segment."""
+    import copy
+
+    start = copy.deepcopy(params)
+    for seg in range(start.A.shape[0]):
+        start.update_params(idx=seg, beta_idx=params.beta.xs[seg] * 0.5,
+                            volvol_idx=float(params.volvol.xs[seg]) * 1.3)
+    return start
+
+
+def _rates_calib_phase(svt, graphs, chain) -> None:
+    """the factor-HJM cube calibration on the USD cube (12 slices x 9
+    strikes): the traced reprice (one graph) captured, eager and on the CPU;
+    the six traced greeks (one graph each); the A prefit through the traced
+    graph; the cube LM (the initial state and the iteration one graph each)
+    with its graph's nodes, captured against eager and the card against the
+    CPU over two iterations; the pricer's entry point."""
+    del chain
+    from stochvolmodels_torch.models.factor_hjm import fast_calibration as fc
+    from stochvolmodels_torch.models.factor_hjm import rate_logsv_pricer as rates
+
+    smi = _smi_name_and_power()
+    sw_chain, params = _usd_swaption_cube(svt)
+    slices, fwds, strikes, market = fc.swaption_chain_to_cube(sw_chain,
+                                                              max_expiry=RATES_MAX_EXPIRY)
+    fwd = np.asarray(fwds)[:, None]
+    cube_rows = (slices, fwds, strikes)
+
+    # the traced reprice at the fitted parameters
+    cube, _ = rates.make_swaption_cube_fn_traced(params, *cube_rows, device=DEVICE)
+    args = cube.primals()
+    replays = graphs.REPLAYS["rates_cube_traced"]
+    first, capture_s, captured_s, captured, eager = _captured_then_eager(
+        graphs, lambda: [cube(*args).cpu().numpy()])
+    _check(graphs.REPLAYS["rates_cube_traced"] >= replays + 3, "the traced cube did not replay")
+    prices = first[0]
+    cpu_cube, _ = rates.make_swaption_cube_fn_traced(params, *cube_rows, device="cpu")
+    cpu_prices, cpu_s = _timed_s(lambda: cpu_cube(*cpu_cube.primals()).numpy())
+    price_gap = float(np.max(np.abs(prices - cpu_prices) / fwd))
+    _check(bool(np.all(np.isfinite(prices))) and price_gap <= 1e-12,
+           f"traced cube card against CPU: {price_gap} x forward")
+    frozen, _ = rates.make_swaption_cube_fn(params, *cube_rows, device=DEVICE)
+    frozen_gap = float(np.max(np.abs(prices - frozen(params.sigma0, params.beta.xs,
+                                                       params.volvol.xs).cpu().numpy()) / fwd))
+    print(f"[rates-calib] traced cube reprice, USD cube {len(slices)} x 9 (S = {cube.nb_steps} "
+          f"RK4 steps, {cube.key[2]} mean-state RK4 steps), the paper's fitted parameters: "
+          f"capture (first call) {capture_s:.3f} s; warm captured {1e3 * captured_s:.2f} ms; "
+          f"captured profile: {_busy_line(captured)}; eager profile: {_busy_line(eager)}; "
+          f"captured equal bit for bit to eager; card against CPU max |dprice| / forward "
+          f"{price_gap:.2e} (CPU {cpu_s:.2f} s); traced against frozen (scipy rtol 1e-3 panels) "
+          f"max |dprice| / forward {frozen_gap:.2e} | {smi}", flush=True)
+
+    # the six traced greeks
+    call = lambda: svt.swaption_cube_greeks(params, *cube_rows, greeks=TRACED_GREEKS,
+                                            traced=True, device=DEVICE)[0]
+    replays = graphs.REPLAYS["rates_cube_greeks_traced"]
+    gpu_greeks, greeks_first_s = _timed_s(call)
+    again, greeks_warm_s = _timed_s(call)
+    _check(graphs.REPLAYS["rates_cube_greeks_traced"] == replays + 2 * len(TRACED_GREEKS),
+           "the traced greeks' graphs did not replay")
+    with graphs.eager():
+        eager_greeks, greeks_eager_s = _timed_s(call)
+    for g in ("price",) + TRACED_GREEKS:
+        _check(np.array_equal(again[g], gpu_greeks[g]) and np.array_equal(eager_greeks[g],
+                                                                          gpu_greeks[g]),
+               f"traced greek {g}: a warm or eager call differs from the captured one")
+    cpu_greeks, greeks_cpu_s = _timed_s(lambda: svt.swaption_cube_greeks(
+        params, *cube_rows, greeks=TRACED_GREEKS, traced=True, device="cpu")[0])
+    greek_gap = 0.0
+    for g in TRACED_GREEKS:
+        c, d = cpu_greeks[g], np.abs(gpu_greeks[g] - cpu_greeks[g])
+        _check(bool(np.all((d <= 1e-10 * np.abs(c)) | (d <= 1e-14))),
+               f"traced greek {g} card against CPU: {np.max(d)}")
+        greek_gap = max(greek_gap, float(np.max(d / np.maximum(np.abs(c), 1e-14))))
+    print(f"[rates-calib] swaption_cube_greeks(traced=True), {', '.join(TRACED_GREEKS)} (one "
+          f"jvp a greek, one CUDA graph each): first call (captures) {greeks_first_s:.3f} s, "
+          f"warm {greeks_warm_s:.3f} s, eager {greeks_eager_s:.3f} s, CPU {greeks_cpu_s:.2f} s; "
+          f"captured equal bit for bit to eager; card against CPU max relative gap "
+          f"{greek_gap:.2e} (floor 1e-14) | {smi}", flush=True)
+
+    # the A prefit through the traced graph, from the start point
+    start = _rates_start(params)
+    replays = graphs.REPLAYS["rates_cube_traced"]
+    (prefit, atm_bp), prefit_s = _timed_s(lambda: fc.prefit_A_to_atm(
+        start, *cube_rows, market, nb_outer=RATES_PREFIT_OUTER, traced=True, device=DEVICE))
+    prefit_replays = graphs.REPLAYS["rates_cube_traced"] - replays
+    _check(prefit_replays == RATES_PREFIT_OUTER and np.isfinite(atm_bp),
+           f"prefit: {prefit_replays} traced-cube replays, ATM error {atm_bp} bp")
+    print(f"[rates-calib] prefit_A_to_atm(traced=True), {RATES_PREFIT_OUTER} outer iterations "
+          f"from the start point (beta x 0.5, volvol x 1.3): {prefit_s:.3f} s (one traced-cube "
+          f"graph, {prefit_replays} replays, a batched ATM bisection an iteration); max ATM "
+          f"error {atm_bp:.3f} bp; A moved by up to "
+          f"{float(np.max(np.abs(prefit.A / start.A - 1.0))):.3%} | {smi}", flush=True)
+
+    # the cube LM (frozen panels) from the start point, every segment the expiries reach free
+    n_quotes = sum(len(k) for k in strikes)
+    n_free = min(max(int(np.searchsorted(params.ts, e)) - 1 for e, _ in slices),
+                 params.A.shape[0] - 1) + 1
+    lm = lambda p, n, device=DEVICE: fc.calibrate_rate_logsv_cube_lm_on_device(
+        p, *cube_rows, market, nb_iters=n, year_steps=RATES_CALIB_YEAR_STEPS, device=device)
+    (_, cost0), _ = _timed_s(lambda: lm(start, 0))
+    captures = graphs.CAPTURES["rates_lm_step"]
+    (fit, cost), first_s = _timed_s(lambda: lm(start, RATES_CALIB_ITERS))
+    _check(graphs.CAPTURES["rates_lm_step"] == captures + 1, "the LM step was not captured")
+    replays = graphs.REPLAYS["rates_lm_step"]
+    (fit_w, cost_w), warm_s = _timed_s(lambda: lm(start, RATES_CALIB_ITERS))
+    _check(graphs.REPLAYS["rates_lm_step"] == replays + RATES_CALIB_ITERS,
+           "the LM step did not replay once an iteration")
+    _check(cost_w == cost and np.array_equal(fit_w.beta.xs, fit.beta.xs),
+           "a warm LM fit differs from the first")
+    rms0, rms = (1e4 * float(np.sqrt(c / n_quotes)) for c in (cost0, cost))
+    _check(np.isfinite(cost) and rms < rms0, f"cube LM: RMS gap {rms0} -> {rms} bp")
+    _, (k0, _, busy0, _) = _profiled(lambda: lm(start, 0))
+    _, (k1, launch1, busy1, wall1) = _profiled(lambda: lm(start, 1))
+    two = lm(start, 2)
+    with graphs.eager():
+        two_eager, eager2_s = _timed_s(lambda: lm(start, 2))
+    _check(two[1] == two_eager[1] and np.array_equal(two[0].beta.xs, two_eager[0].beta.xs)
+           and np.array_equal(two[0].volvol.xs, two_eager[0].volvol.xs),
+           "the captured LM differs from the eager LM")
+    two_cpu, cpu2_s = _timed_s(lambda: lm(start, 2, device="cpu"))
+    iter_gap = max(_rel_gap(two[0].beta.xs, two_cpu[0].beta.xs),
+                   _rel_gap(two[0].volvol.xs, two_cpu[0].volvol.xs),
+                   abs(two[1] - two_cpu[1]) / two_cpu[1])
+    _check(iter_gap <= 1e-9, f"cube LM iterates card against CPU: {iter_gap}")
+    print(f"[rates-calib] cube LM (fit_A=False, segments 0-{n_free - 1}, "
+          f"{n_free * (params.A.shape[1] + 1)} parameters, {n_quotes} "
+          f"quotes, {RATES_CALIB_ITERS} iterations at {RATES_CALIB_YEAR_STEPS} steps/yr) from the "
+          f"start point: RMS normal-vol gap {rms0:.2f} -> {rms:.2f} bp (cost {cost0:.4e} -> "
+          f"{cost:.4e}); first call {first_s:.3f} s (captures the initial state and the "
+          f"iteration), warm {warm_s:.3f} s (capture ~{first_s - warm_s:.3f} s); the iteration's "
+          f"graph {k1 - k0} kernel nodes (one replay, {busy1 - busy0:.2f} ms busy; one-iteration "
+          f"fit {launch1} host launch calls, {wall1:.1f} ms wall); two iterations captured equal "
+          f"bit for bit to eager ({eager2_s:.2f} s eager), card against CPU max relative gap "
+          f"{iter_gap:.2e} (CPU {cpu2_s:.2f} s) | {smi}", flush=True)
+
+    replays = graphs.REPLAYS["rates_lm_step"]
+    (pfit, pcost), pricer_s = _timed_s(lambda: rates.RateLogSVPricer(
+        device=DEVICE).calibrate_model_params_to_chain(sw_chain, start, max_expiry=RATES_MAX_EXPIRY,
+                                                       nb_iters=RATES_CALIB_ITERS,
+                                                       year_steps=RATES_PRICER_YEAR_STEPS))
+    _check(np.isfinite(pcost) and pcost <= cost0
+           and graphs.REPLAYS["rates_lm_step"] == replays + RATES_CALIB_ITERS,
+           f"pricer calibration: cost {pcost}")
+    print(f"[rates-calib] RateLogSVPricer.calibrate_model_params_to_chain, {RATES_CALIB_ITERS} "
+          f"iterations at {RATES_PRICER_YEAR_STEPS} steps/yr (its default 360 cut, PERF.md): "
+          f"warm {pricer_s:.3f} s, cost {pcost:.4e}, RMS gap "
+          f"{1e4 * float(np.sqrt(pcost / n_quotes)):.2f} bp | {smi}", flush=True)
+
+
+def _mc_band_gate(mc, ups, downs, analytic, what) -> float:
+    """the largest |MC vol - analytic vol| over the wider of 10% of the
+    analytic vol and the MC vol's 1.96-stderr band; fails above 1."""
+    mc, ups, downs, analytic = (np.asarray(a, dtype=float) for a in (mc, ups, downs, analytic))
+    band = np.maximum(0.1 * np.abs(analytic), np.maximum(ups - mc, mc - downs))
+    ratio = float(np.max(np.abs(mc - analytic) / band))
+    _check(bool(np.all(np.isfinite(mc))) and ratio <= 1.0,
+           f"{what}: MC vols {mc} outside the band of {analytic}")
+    return ratio
+
+
+def _futures_params(svt):
+    """the futures fixture of tests/test_factor_hjm.py::TestFuturesMC: a 75-day
+    expiry on a 3-month rate, the paper's USD basis and correlations."""
+    ttm = 75.0 / 365.0
+    times = np.array([0.0, ttm])
+    params = svt.MultiFactRateLogSvParams(
+        sigma0=1.0, theta=1.0, kappa1=0.5, kappa2=1.0,
+        beta=svt.TermStructure.create_multi_fact_from_vec(times, 0.2 * np.ones(3)),
+        volvol=svt.TermStructure.create_from_scalar(times, 0.35),
+        A=np.array([[0.012, 0.011, 0.010]]), R=np.array(USD_R),
+        basis=svt.NelsonSiegel(meanrev=0.55, key_terms=np.array([2.0, 5.0, 10.0])),
+        ccy="USD_NS", vol_interpolation="BY_YIELD")
+    params.q = params.theta
+    return ttm, params
+
+
+def _rates_mc_phase(svt, graphs, chain) -> None:
+    """the factor-HJM Monte Carlo: calc_mc_vols on the USD cube's 1y row at
+    100,000 paths (one graph) against the DE pricer; simulate_logsv_MF under
+    the annuity and T-forward measures at injected normals, card against
+    CPU path by path; calc_futures_mc_vols on one futures expiry against the
+    DE futures pricer."""
+    del chain
+    from stochvolmodels_torch.models.factor_hjm import factor_hjm_pricer as fhjm
+    from stochvolmodels_torch.models.factor_hjm import rate_logsv_pricer as rates
+    from stochvolmodels_torch.models.factor_hjm.rate_affine_expansion import UnderlyingType
+    from stochvolmodels_torch.utils.funcs import set_time_grid
+    from stochvolmodels_torch.utils.rate_core import (
+        generate_ttms_grid,
+        get_default_swap_term_structure,
+    )
+
+    smi = _smi_name_and_power()
+    sw_chain, params = _usd_swaption_cube(svt)
+    tenors = np.asarray(sw_chain.tenors, dtype=float)
+    row = dict(forwards=[np.array([sw_chain.forwards[i][0]]) for i in range(tenors.size)],
+               strikes_ttms=[[np.asarray(sw_chain.strikes_ttms[i][0])] for i in range(tenors.size)])
+    call = lambda: fhjm.calc_mc_vols("NELSON-SIEGEL", params, 1.0, tenors,
+                                     optiontypes=np.repeat('C', 9), is_annuity_measure=False,
+                                     nb_path=RATES_MC_PATHS, seed=7, device=DEVICE, **row)
+    captures = graphs.CAPTURES["rates_mc"]
+    _, first_s = _timed_s(call)
+    (prices, vols, ups, downs), warm_s = _timed_s(call)
+    _check(graphs.CAPTURES["rates_mc"] == captures + 1, "the MC segment was not captured once")
+    _, counts = _profiled(call)
+    de_vols, de_s = _timed_s(lambda: rates.RateLogSVPricer(device=DEVICE).price_chain(
+        sw_chain, params, t_grid=generate_ttms_grid(sw_chain.ttms[:4]), idxs=slice(0, 1)))
+    ratio = max(_mc_band_gate(vols[i], ups[i], downs[i], de_vols[i][0], f"1y x {tenors[i]}y")
+                for i in range(tenors.size))
+    nb_steps = set_time_grid(1.0, 360)[0]
+    print(f"[rates-mc] calc_mc_vols, USD cube 1y row (3 tenors x 9 strikes), {RATES_MC_PATHS} "
+          f"paths x {nb_steps} steps (360/yr, one CUDA graph; normals drawn before it): first "
+          f"call {first_s:.3f} s, warm {warm_s:.3f} s; profile: {_busy_line(counts)}; MC against "
+          f"the DE pricer's normal vols ({de_s:.2f} s): max |gap| / band {ratio:.3f} (band: 10% "
+          f"or the 1.96-stderr band, the wider); 1y x 2y MC vols (bp) "
+          f"{np.round(1e4 * vols[0], 2).tolist()} | {smi}", flush=True)
+
+    # the annuity and T-forward measures at injected normals, card against CPU
+    rng = np.random.default_rng(11)
+    W = (rng.standard_normal((nb_steps, RATES_MC_CHECK_PATHS, 3)),
+         rng.standard_normal((nb_steps, RATES_MC_CHECK_PATHS)))
+    n = RATES_MC_CHECK_PATHS
+    mf = dict(ttms=np.array([1.0]), x0=np.zeros((n, 3)), y0=np.zeros((n, 8)), I0=np.zeros(n),
+              sigma0=np.ones((n, 1)), theta=params.theta, kappa1=params.kappa1,
+              kappa2=params.kappa2, ts=params.ts, A=params.A, R=params.R, C=params.C,
+              Omega=params.Omega, betaxs=params.beta.xs, volvolxs=params.volvol.xs,
+              basis=params.basis, ccy=params.ccy, nb_path=n, W=W)
+    gaps = {}
+    for measure, kw in ((rates.Measure.ANNUITY,
+                         dict(ts_sw=get_default_swap_term_structure(1.0, 5.0), T_fwd=None)),
+                        (rates.Measure.FORWARD, dict(ts_sw=None, T_fwd=3.0))):
+        run = lambda device: rates.simulate_logsv_MF(measure_type=measure, device=device,
+                                                     **mf, **kw)
+        card = run(DEVICE)
+        with graphs.eager():
+            eager = run(DEVICE)
+        cpu = run("cpu")
+        _check(all(np.array_equal(a[-1], b[-1]) for a, b in zip(card, eager)),
+               f"{measure.name}: the captured MC differs from the eager MC")
+        gap = max(float(np.max(np.abs(a[-1] - b[-1]) / np.maximum(np.abs(b[-1]), 1.0)))
+                  for a, b in zip(card, cpu))
+        _check(gap <= 1e-12, f"{measure.name} MC card against CPU: {gap}")
+        gaps[measure.name] = gap
+    print(f"[rates-mc] simulate_logsv_MF at injected normals ({n} paths x {nb_steps} steps, USD "
+          f"parameters): ANNUITY (1y x 5y) and FORWARD (T = 3) captured equal bit for bit to "
+          f"eager; card against CPU path by path max gap "
+          + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items()) + f" (floor 1) | {smi}",
+          flush=True)
+
+    # one futures expiry against the DE futures pricer
+    ttm, fparams = _futures_params(svt)
+    fstrikes = np.array([0.052, 0.057, 0.062])
+    fut = lambda: rates.calc_futures_mc_vols(fparams, ttm, ttm, ttm + 0.25, strikes=fstrikes,
+                                             optiontypes=np.array(['C'] * 3),
+                                             nb_path=RATES_MC_PATHS, seed=42, device=DEVICE)
+    _, fut_first_s = _timed_s(fut)
+    (f0, fvols, fse), fut_s = _timed_s(fut)
+    _, de_f = rates.logsv_chain_de_pricer(
+        params=fparams, t_grid=generate_ttms_grid(np.array([ttm])), ttms=np.array([ttm]),
+        forwards=[np.array([f0])], strikes_ttms=[[fstrikes]], optiontypes_ttms=[np.repeat('C', 3)],
+        underlying_type=UnderlyingType.FUTURES, settlement_type=rates.FutSettleType.EURODOLLAR,
+        device=DEVICE)
+    vega = np.sqrt(ttm) * np.exp(-0.5 * ((f0 - fstrikes) / (fvols * np.sqrt(ttm))) ** 2) \
+        / np.sqrt(2.0 * np.pi)
+    band = 1.96 * fse / vega
+    fratio = _mc_band_gate(fvols, fvols + band, fvols - band, np.asarray(de_f[0][0]).ravel(),
+                           "futures")
+    print(f"[rates-mc] calc_futures_mc_vols, 75-day expiry on a 3m rate, {RATES_MC_PATHS} "
+          f"paths x {set_time_grid(ttm, 720)[0]} steps (720/yr, one CUDA graph): first call "
+          f"{fut_first_s:.3f} s, warm {fut_s:.3f} s; f0 {f0:.6f}; MC against the DE futures "
+          f"pricer: max |gap| / band {fratio:.3f}; MC vols (bp) "
+          f"{np.round(1e4 * fvols, 2).tolist()} | {smi}", flush=True)
+
+
 # the phases that run in the side process, in order: none launches a hand-written kernel
 SIDE_PHASES = ("greeks", "terminal-models", "sweep", "rates-cube")
 
 
-def _side_phases(conn) -> None:
-    """the side process: each of SIDE_PHASES on the BTC chain, its walls (or
-    the traceback of its failure) sent back through ``conn``."""
+# the factor-HJM calibration and Monte Carlo, in a second side process: host bound too, and
+# their CPU references take minutes of host time
+RATES_SIDE_PHASES = ("rates-calib", "rates-mc")
+
+
+def _side_phases(conn, names) -> None:
+    """a side process: each of ``names`` on the BTC chain, its walls (or the
+    traceback of its failure) sent back through ``conn``."""
     import traceback
 
     try:
@@ -1726,9 +2025,13 @@ def _side_phases(conn) -> None:
 
         chain = svt.get_btc_test_chain_data()
         phases = {"greeks": _greeks_phase, "terminal-models": _terminal_models_phase,
-                  "sweep": _sweep_phase, "rates-cube": _rates_cube_phase}
+                  "sweep": _sweep_phase, "rates-cube": _rates_cube_phase,
+                  "rates-calib": _rates_calib_phase, "rates-mc": _rates_mc_phase}
+        if names == RATES_SIDE_PHASES:
+            # the CPU references of these phases share the host with two more processes
+            torch.set_num_threads(2)
         walls = {}
-        for name in SIDE_PHASES:
+        for name in names:
             t0 = time.perf_counter()
             phases[name](svt, graphs, chain)
             walls[name] = time.perf_counter() - t0
@@ -1740,13 +2043,15 @@ def _side_phases(conn) -> None:
         conn.close()
 
 
-def _start_side_phases():
-    """(the side process, the end of the pipe it reports on), started."""
+def _start_side_phases(names=SIDE_PHASES):
+    """(a side process running ``names``, the end of the pipe it reports on),
+    started."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
     receiver, sender = ctx.Pipe(duplex=False)
-    process = ctx.Process(target=_side_phases, args=(sender,), name="chip_smoke side phases")
+    process = ctx.Process(target=_side_phases, args=(sender, names),
+                          name=f"chip_smoke side phases {names[0]}")
     process.start()
     sender.close()
     return process, receiver
@@ -2148,6 +2453,7 @@ def main() -> int:
     # 12.-14. the greeks, the terminal models and the LM sweeps in a side process, beside
     # the phases below: all of them are bound by host launch work, not by the card
     side, side_conn = _start_side_phases()
+    rates_side, rates_conn = _start_side_phases(RATES_SIDE_PHASES)
     try:
         # 15.-16. calibration and the CUDA graphs of the launch-bound calls
         timed("calibration", _calibration_phase, svt, gpu, chain)
@@ -2169,10 +2475,13 @@ def main() -> int:
         timed("heston-extras", _heston_extras_phase, svt, graphs, chain)
         walls.update({f"{k} (side process)": v
                       for k, v in _join_side_phases(side, side_conn).items()})
+        walls.update({f"{k} (rates side process)": v
+                      for k, v in _join_side_phases(rates_side, rates_conn).items()})
     finally:
-        if side.is_alive():
-            side.terminate()
-            side.join(30)
+        for process in (side, rates_side):
+            if process.is_alive():
+                process.terminate()
+                process.join(30)
     print("[phase-walls] s: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
           + f"; total {time.perf_counter() - t_start:.1f}", flush=True)
 

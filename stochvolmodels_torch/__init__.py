@@ -33,6 +33,7 @@ from stochvolmodels_torch.config import (  # noqa: F401
 )
 from stochvolmodels_torch.data.option_chain import (  # noqa: F401
     ChainGrid,
+    FutOptionChain,
     OptionChain,
     OptionSlice,
     SwOptionChain,

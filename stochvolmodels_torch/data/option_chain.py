@@ -461,3 +461,83 @@ class SwOptionChain:
         put_cond = inc_grid < -0.5
         call_cond = inc_grid >= -0.5
         return np.concatenate((-inc_grid[put_cond] - 1.0, -inc_grid[call_cond]))
+
+
+@dataclass
+class FutOptionChain:
+    """futures option chain with optional open-interest filtering, the
+    counterpart of the JAX package's ``FutOptionChain`` (host numpy)."""
+    ccy: str
+    ttms: np.ndarray
+    forwards: np.ndarray
+    strikes_ttms: Sequence[np.ndarray]
+    ttms_ids: Optional[np.ndarray]
+    ivs_call_ttms: Sequence[np.ndarray]
+    ivs_put_ttms: Sequence[np.ndarray]
+    ticker: Optional[str] = None
+    call_oi: Optional[Sequence[np.ndarray]] = None
+    put_oi: Optional[Sequence[np.ndarray]] = None
+    call_vol: Optional[Sequence[np.ndarray]] = None
+    put_vol: Optional[Sequence[np.ndarray]] = None
+
+    def __post_init__(self):
+        assert self.ttms.size == len(self.ttms_ids)
+        assert np.all(np.diff(self.ttms) >= 0) and np.all(self.ttms >= 0)
+        self.optiontypes_ttms = tuple(np.repeat('C', self.strikes_ttms[i].size)
+                                      for i in range(len(self.ttms)))
+        assert all(c.shape == p.shape for c, p in zip(self.ivs_call_ttms, self.ivs_put_ttms))
+        assert len(self.ivs_call_ttms) == self.ttms.size
+        assert self.ttms.shape == self.forwards.shape
+        assert all(np.asarray(s).ndim == 1 for s in self.strikes_ttms)
+        assert (self.call_oi is None) == (self.put_oi is None)
+        assert (self.call_vol is None) == (self.put_vol is None)
+
+    def filter_by_oi(self, max_strikes: int, include_atm: bool) -> "FutOptionChain":
+        """keep the ``max_strikes`` strikes of each expiry with the largest
+        open interest (calls and puts), in strike order; with
+        ``include_atm`` the middle strike must be among them."""
+        if self.call_oi is None:
+            raise NotImplementedError("call/put open interest cannot be None")
+        mid_idx = int(0.5 * (self.strikes_ttms[0].size - 1))
+        strikes_l, ivc_l, ivp_l, coi_l, poi_l = [], [], [], [], []
+        for idx_ttm in range(len(self.ttms)):
+            oi = self.call_oi[idx_ttm] + self.put_oi[idx_ttm]
+            idxs = oi.argsort()[-max_strikes:][::-1]
+            if include_atm and mid_idx not in idxs:
+                raise ValueError(f"atm strike not found among top {max_strikes} liquid options")
+            idxs = np.sort(idxs)
+            strikes_l.append(self.strikes_ttms[idx_ttm][idxs])
+            ivc_l.append(self.ivs_call_ttms[idx_ttm][idxs])
+            ivp_l.append(self.ivs_put_ttms[idx_ttm][idxs])
+            coi_l.append(self.call_oi[idx_ttm][idxs])
+            poi_l.append(self.put_oi[idx_ttm][idxs])
+        return FutOptionChain(ccy=self.ccy, ttms=self.ttms, forwards=self.forwards,
+                              strikes_ttms=np.array(strikes_l), ivs_call_ttms=np.array(ivc_l),
+                              ivs_put_ttms=np.array(ivp_l), ttms_ids=self.ttms_ids,
+                              call_oi=coi_l, put_oi=poi_l, ticker=self.ticker)
+
+    def get_mid_vols(self):
+        return self.ivs_call_ttms
+
+    def get_chain_vegas(self, device="cuda") -> List[np.ndarray]:
+        """normal vegas of each expiry's strikes at the call vols, computed
+        on ``device``."""
+        f64 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), device=device)
+        return [bachel.compute_normal_slice_vegas(ttm=f64(t), forward=f, strikes=s,
+                                                  vols=v).cpu().numpy()
+                for t, f, s, v in zip(self.ttms, self.forwards, self.strikes_ttms,
+                                      self.ivs_call_ttms)]
+
+    def reduce_ttms(self, ttms_ids) -> "FutOptionChain":
+        """restrict the chain to the listed expiry ids."""
+        if not np.all(np.isin(ttms_ids, self.ttms_ids)):
+            raise ValueError("Expiries to be removed not present in chain")
+        idx_ttms = np.where(np.isin(self.ttms_ids, ttms_ids))[0]
+        assert self.call_oi is None and self.call_vol is None
+        return FutOptionChain(ccy=self.ccy, ttms=self.ttms[idx_ttms],
+                              forwards=self.forwards[idx_ttms],
+                              strikes_ttms=[self.strikes_ttms[i] for i in idx_ttms],
+                              ttms_ids=ttms_ids,
+                              ivs_put_ttms=[self.ivs_put_ttms[i] for i in idx_ttms],
+                              ivs_call_ttms=[self.ivs_call_ttms[i] for i in idx_ttms],
+                              ticker=self.ticker)

@@ -1,6 +1,15 @@
 from stochvolmodels_torch.models.factor_hjm.double_exp_pricer import de_pricer  # noqa: F401
 from stochvolmodels_torch.models.factor_hjm.fast_calibration import (  # noqa: F401
+    calibrate_rate_logsv_cube_lm_on_device,
+    calibrate_rate_logsv_full,
+    calibrate_rate_logsv_lm_on_device,
+    calibrate_rate_logsv_term_structure,
+    prefit_A_to_atm,
     swaption_chain_to_cube,
+)
+from stochvolmodels_torch.models.factor_hjm.factor_hjm_pricer import (  # noqa: F401
+    calc_mc_vols,
+    do_mc_simulation,
 )
 from stochvolmodels_torch.models.factor_hjm.rate_affine_expansion import (  # noqa: F401
     UnderlyingType,

@@ -389,19 +389,27 @@ def heston_chain_greeks(option_chain: OptionChain,
 #: the cube greeks: the argument of the cube pricer (sigma0, beta_xs,
 #: volvol_xs) that each one bumps by +1 throughout
 _CUBE_GREEKS = {"vega": 0, "beta_shift": 1, "volvol_shift": 2}
-_CUBE_GREEKS_TRACED = ("A_shift", "kappa1", "kappa2")
+#: the same for the traced cube (sigma0, A_xs, beta_xs, volvol_xs, kappa1,
+#: kappa2), which has three greeks more
+_CUBE_GREEKS_TRACED = {"vega": 0, "A_shift": 1, "beta_shift": 2, "volvol_shift": 3,
+                       "kappa1": 4, "kappa2": 5}
 
 
-def _cube_greek_panels(greek: str, *inputs):
-    """(price, d price) of the cube's ``_cube_price`` along ``greek``'s
-    tangent: ones on the bumped argument, zeros on the other two."""
-    from stochvolmodels_torch.models.factor_hjm.rate_logsv_pricer import _cube_price
+def _cube_greek_panels(greek: str, *inputs, traced: bool = False):
+    """(price, d price) of the cube's ``_cube_price`` (or, ``traced``, its
+    ``_traced_cube_price``) along ``greek``'s tangent: ones on the bumped
+    argument, zeros on the others."""
+    from stochvolmodels_torch.models.factor_hjm.rate_logsv_pricer import (
+        _cube_price,
+        _traced_cube_price,
+    )
 
-    primals, consts = inputs[:3], inputs[3:]
-    which = _CUBE_GREEKS[greek]
+    nb_args, which = ((6, _CUBE_GREEKS_TRACED[greek]) if traced else (3, _CUBE_GREEKS[greek]))
+    price_fn = _traced_cube_price if traced else _cube_price
+    primals, consts = inputs[:nb_args], inputs[nb_args:]
     tangents = tuple(torch.ones_like(x) if i == which else torch.zeros_like(x)
                      for i, x in enumerate(primals))
-    price, sens = jvp(lambda *args: _cube_price(*args, *consts)[0], primals, tangents)
+    price, sens = jvp(lambda *args: price_fn(*args, *consts)[0], primals, tangents)
     return price, sens
 
 
@@ -430,34 +438,43 @@ def swaption_cube_greeks(params,
     and ``mask`` the strike-validity panel.  Every greek runs on the same
     frozen structural panels as the pricer; on a card each is one captured
     CUDA graph (``"rates_cube_greeks"``, keyed by the cube's shapes and the
-    greek), so a warm reprice costs one replay a greek.  ``traced=True``
-    (greeks through the structural panels, and A_shift/kappa1/kappa2) is not
-    ported yet: it needs ``qa_traced`` (ROADMAP section 1, item 4).
+    greek), so a warm reprice costs one replay a greek.
+
+    ``traced=True`` goes through ``make_swaption_cube_fn_traced`` instead:
+    the structural panels (mean-state ODE, swap gradient, annuity
+    log-derivative, factor vols C) are inside the jvp, so every greek is
+    exact through the structure, and three more greeks are available:
+
+    - ``'A_shift'``      dP/d(parallel shift of the factor-vol levels A);
+    - ``'kappa1'``       dP/d(kappa1);
+    - ``'kappa2'``       dP/d(kappa2).
+
+    Each is one graph on a card (``"rates_cube_greeks_traced"``).
     """
     from stochvolmodels_torch.models.factor_hjm.rate_logsv_pricer import (
-        NOT_PORTED,
         make_swaption_cube_fn,
+        make_swaption_cube_fn_traced,
     )
-    if traced:
-        raise NotImplementedError(f"swaption_cube_greeks(traced=True) is {NOT_PORTED}")
+    allowed = tuple(_CUBE_GREEKS_TRACED if traced else _CUBE_GREEKS)
     for g in greeks:
-        if g not in _CUBE_GREEKS:
+        if g not in allowed:
             raise ValueError(
-                f"unknown greek {g!r}; expected one of {tuple(_CUBE_GREEKS)}"
+                f"unknown greek {g!r}; expected one of {allowed}"
                 + (" (A_shift/kappa1/kappa2 need traced=True)"
-                   if g in _CUBE_GREEKS_TRACED else ""))
-    cube, mask = make_swaption_cube_fn(params, slices, forwards, strikes_slices,
-                                       device=device, **cube_kwargs)
+                   if g in _CUBE_GREEKS_TRACED and not traced else ""))
+    build = make_swaption_cube_fn_traced if traced else make_swaption_cube_fn
+    cube, mask = build(params, slices, forwards, strikes_slices, device=device, **cube_kwargs)
     inputs = cube.primals() + cube.consts
+    name = "rates_cube_greeks_traced" if traced else "rates_cube_greeks"
     panels: Dict[str, np.ndarray] = {}
     for g in greeks:
-        fn = lambda *t, g=g: _cube_greek_panels(g, *t)
+        fn = lambda *t, g=g: _cube_greek_panels(g, *t, traced=traced)
         if graphs.use_graph(inputs[0]):
-            price, sens = graphs.run_captured("rates_cube_greeks", cube.key + (g,), fn, inputs)
+            price, sens = graphs.run_captured(name, cube.key + (g,), fn, inputs)
         else:
             price, sens = fn(*inputs)
         panels.setdefault("price", price.detach().cpu().numpy())
         panels[g] = sens.detach().cpu().numpy()
     if "price" not in panels:
-        panels["price"] = cube(*inputs[:3]).cpu().numpy()
+        panels["price"] = cube(*inputs[:6 if traced else 3]).cpu().numpy()
     return panels, mask.cpu().numpy()

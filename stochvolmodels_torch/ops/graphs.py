@@ -12,10 +12,11 @@ its one iteration, replayed once per iteration (``models/hawkes_jd.py``),
 the LogSV Q_VAR reprice, densities and QMC slices and the Heston QMC slices
 (``models/logsv/pricer.py``, ``models/heston.py``), each chain-greeks
 program (``models/greeks.py``), the exponential-Euler affine solve
-(``models/logsv/affine.py``), the factor-HJM swaption cube reprice and each
-of its greeks and the rates Riccati RK4 of the adaptive tanh-sinh pricer
-(``models/factor_hjm/``); each is one graph per shape and static
-configuration.
+(``models/logsv/affine.py``), the factor-HJM swaption cube reprice, frozen
+or traced, and each of its greeks, the rates Riccati RK4 of the adaptive
+tanh-sinh pricer, the cube LM's initial state and its iteration, and each
+rates Monte-Carlo segment (``models/factor_hjm/``); each is one graph per
+shape and static configuration.
 
 A graph replays the exact kernels that the eager call launches, on the same
 inputs, so its outputs equal the eager call's bit for bit.  There is no

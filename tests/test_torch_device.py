@@ -11,7 +11,9 @@
     and Student-t analytics, the GMM and Student-t pricers and fits, the
     LogSV and Heston LM sweeps, and the factor-HJM swaption slice and cube
     pricers, the cube greeks, the adaptive tanh-sinh pricer and both rate
-    pricers.
+    pricers; the traced cube and its greeks, the five cube calibrations and
+    the pricer's, the multi-factor, futures and swaption Monte Carlo, and
+    the futures chain's vegas.
 """
 import importlib
 import inspect
@@ -68,7 +70,18 @@ def test_no_device_parameter_defaults_to_the_cpu():
                  "models.factor_hjm.rate_logsv_pricer.make_swaption_cube_fn",
                  "models.factor_hjm.rate_logsv_pricer.logsv_chain_de_pricer",
                  "models.factor_hjm.rate_logsv_pricer.futures_conv_adj",
-                 "models.greeks.swaption_cube_greeks"):
+                 "models.greeks.swaption_cube_greeks",
+                 "models.factor_hjm.rate_logsv_pricer.make_swaption_cube_fn_traced",
+                 "models.factor_hjm.rate_logsv_pricer.simulate_logsv_MF",
+                 "models.factor_hjm.rate_logsv_pricer.simulate_logsv_futures_MF",
+                 "models.factor_hjm.rate_logsv_pricer.calc_futures_mc_vols",
+                 "models.factor_hjm.fast_calibration.calibrate_rate_logsv_lm_on_device",
+                 "models.factor_hjm.fast_calibration.calibrate_rate_logsv_cube_lm_on_device",
+                 "models.factor_hjm.fast_calibration.prefit_A_to_atm",
+                 "models.factor_hjm.fast_calibration.calibrate_rate_logsv_full",
+                 "models.factor_hjm.factor_hjm_pricer.do_mc_simulation",
+                 "models.factor_hjm.factor_hjm_pricer.calc_mc_vols",
+                 "data.option_chain.FutOptionChain.get_chain_vegas"):
         assert f"stochvolmodels_torch.{name}" in with_device, name
     not_cuda = {name: d for name, d in with_device.items()
                 if d is None or torch.device(d).type != "cuda"}
@@ -199,7 +212,67 @@ def rate_default_device_calls():
             chain, params, t_grid=t_grid, idxs=slice(0, 1)),
         "RateFutLogSVPricer.price_chain": lambda: svt.RateFutLogSVPricer().price_chain(
             futures, params, t_grid=t_grid, idxs=slice(0, 1)),
+        **rate_suite_default_device_calls(params, strikes, t_grid, chain),
     }
+
+
+def rate_suite_default_device_calls(params, strikes, t_grid, chain):
+    """the traced cube, the cube calibration, the Monte Carlo and the futures
+    chain's vegas, each on its default device."""
+    from stochvolmodels_torch.models.factor_hjm import factor_hjm_pricer as mc
+    from stochvolmodels_torch.models.factor_hjm import fast_calibration as fc
+    from stochvolmodels_torch.models.factor_hjm import rate_logsv_pricer as rates
+
+    cube = ([(1.0, 1.0)], [0.0], [strikes], [np.full(3, 0.01)])
+    mf = dict(ttms=np.array([1.0]), x0=np.zeros(3), y0=np.zeros(8), I0=np.zeros(1),
+              sigma0=np.ones(1), theta=1.0, kappa1=1.0, kappa2=1.0, ts=params.ts, A=params.A,
+              R=params.R, C=params.C, Omega=params.Omega, betaxs=params.beta.xs,
+              volvolxs=params.volvol.xs, basis=params.basis, ts_sw=None, T_fwd=None,
+              ccy="USD", nb_path=8)
+    fut_chain = svt.FutOptionChain(
+        ccy="USD", ttms=np.array([0.5]), forwards=np.array([0.05]), strikes_ttms=[0.05 + strikes],
+        ttms_ids=np.array(["M"]), ivs_call_ttms=[np.full(3, 0.01)],
+        ivs_put_ttms=[np.full(3, 0.01)])
+    mc_vols = dict(basis_type="NELSON-SIEGEL", params=params, ttm=1.0, tenors=np.array([1.0]),
+                   forwards=[np.array([0.04])], strikes_ttms=[[0.04 + strikes]],
+                   optiontypes=np.repeat('C', 3), is_annuity_measure=False, nb_path=8)
+    return {
+        "make_swaption_cube_fn_traced": lambda: rates.make_swaption_cube_fn_traced(
+            params, *cube[:3]),
+        "swaption_cube_greeks(traced)": lambda: svt.swaption_cube_greeks(
+            params, *cube[:3], traced=True),
+        "calibrate_rate_logsv_lm_on_device": lambda: fc.calibrate_rate_logsv_lm_on_device(
+            params, t_grid, 1.0, 0, [1.0], [0.0], [strikes], [np.full(3, 0.01)]),
+        "calibrate_rate_logsv_term_structure": lambda: fc.calibrate_rate_logsv_term_structure(
+            params, [1.0], [1.0], [[0.0]], [[strikes]], [[np.full(3, 0.01)]]),
+        "calibrate_rate_logsv_cube_lm_on_device":
+            lambda: fc.calibrate_rate_logsv_cube_lm_on_device(params, *cube),
+        "prefit_A_to_atm(traced)": lambda: fc.prefit_A_to_atm(params, *cube),
+        "prefit_A_to_atm(frozen)": lambda: fc.prefit_A_to_atm(params, *cube, traced=False),
+        "calibrate_rate_logsv_full": lambda: fc.calibrate_rate_logsv_full(params, *cube),
+        "RateLogSVPricer.calibrate_model_params_to_chain":
+            lambda: svt.RateLogSVPricer().calibrate_model_params_to_chain(chain, params),
+        "simulate_logsv_MF": lambda: rates.simulate_logsv_MF(**mf),
+        "simulate_logsv_futures_MF": lambda: rates.simulate_logsv_futures_MF(
+            params, 0.5, 0.5, 0.75, nb_path=8),
+        "calc_futures_mc_vols": lambda: rates.calc_futures_mc_vols(
+            params, 0.5, 0.5, 0.75, strikes=0.05 + strikes, optiontypes=np.repeat('C', 3),
+            nb_path=8),
+        "do_mc_simulation": lambda: mc.do_mc_simulation(
+            "NELSON-SIEGEL", "USD", np.array([1.0]), np.zeros((8, 3)), np.zeros((8, 8)),
+            np.zeros(8), np.ones((8, 1)), params, nb_path=8),
+        "calc_mc_vols": lambda: mc.calc_mc_vols(**mc_vols),
+        "FutOptionChain.get_chain_vegas": fut_chain.get_chain_vegas,
+    }
+
+
+RATE_SUITE_CALLS = ["make_swaption_cube_fn_traced", "swaption_cube_greeks(traced)",
+                    "calibrate_rate_logsv_lm_on_device", "calibrate_rate_logsv_term_structure",
+                    "calibrate_rate_logsv_cube_lm_on_device", "prefit_A_to_atm(traced)",
+                    "prefit_A_to_atm(frozen)", "calibrate_rate_logsv_full",
+                    "RateLogSVPricer.calibrate_model_params_to_chain", "simulate_logsv_MF",
+                    "simulate_logsv_futures_MF", "calc_futures_mc_vols", "do_mc_simulation",
+                    "calc_mc_vols", "FutOptionChain.get_chain_vegas"]
 
 
 @pytest.mark.parametrize("name", ["LogSVPricer.price_chain", "HestonPricer.price_chain",
@@ -233,7 +306,7 @@ def rate_default_device_calls():
                                   "make_swaption_slice_fn", "make_swaption_cube_fn",
                                   "swaption_cube_greeks", "logsv_chain_de_pricer",
                                   "RateLogSVPricer.price_chain",
-                                  "RateFutLogSVPricer.price_chain"])
+                                  "RateFutLogSVPricer.price_chain"] + RATE_SUITE_CALLS)
 def test_default_device_call_raises_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("this PyTorch has a CUDA device: the default device runs")

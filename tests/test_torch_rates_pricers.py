@@ -11,9 +11,9 @@ the JAX package (``engine='f64'``), on the CPU in float64.
 * the divergence freeze under ``torch.func.jvp``: the tangent of A on every
   dead node is exactly 0, and finite on the live ones;
 * the entry points kept for the signature: ``engine`` takes 'auto', 'f64'
-  and 'df32' (all float64), anything else raises; ``mesh`` other than None,
-  the traced cube, the cube calibration, the traced greeks and the Monte
-  Carlo raise ``NotImplementedError``.
+  and 'df32' (all float64), anything else raises; ``mesh`` other than None
+  and ``RateLogSVPricer.model_mc_price_chain`` (as in the JAX package)
+  raise ``NotImplementedError``.
 """
 import jax
 import jax.numpy as jnp
@@ -154,18 +154,10 @@ def test_unknown_engine_and_a_mesh_raise():
                                   device="cpu")
 
 
-@pytest.mark.parametrize("call", ["traced cube", "traced greeks", "calibrate", "mc", "futures mc",
-                                  "model_mc_price_chain"])
+@pytest.mark.parametrize("call", ["model_mc_price_chain"])
 def test_entry_points_not_ported_raise(call):
     _, pt = rate_param_pair()
     calls = {
-        "traced cube": lambda: trp.make_swaption_cube_fn_traced(pt, SLICES, FWDS, STRIKES),
-        "traced greeks": lambda: svt.swaption_cube_greeks(pt, SLICES, FWDS, STRIKES, traced=True,
-                                                          device="cpu"),
-        "calibrate": lambda: trp.RateLogSVPricer(device="cpu").calibrate_model_params_to_chain(
-            None, pt),
-        "mc": lambda: trp.simulate_logsv_MF(),
-        "futures mc": lambda: trp.calc_futures_mc_vols(),
         "model_mc_price_chain": lambda: trp.RateLogSVPricer(device="cpu").model_mc_price_chain(
             None, pt)}
     with pytest.raises(NotImplementedError):

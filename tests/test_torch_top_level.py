@@ -2,8 +2,7 @@
 
 ``stochvolmodels_tpu/__init__.py`` is parsed with ``ast`` (no JAX import):
 every name it exports must exist on ``stochvolmodels_torch``, except the
-names listed below with their reasons.  Each listed name must really be
-missing from the port, so that a name leaves the list as it lands.
+names that exist only because of the TPU, listed below.
 """
 import ast
 import fnmatch
@@ -19,14 +18,11 @@ JAX_INIT = Path(__file__).resolve().parents[1] / "stochvolmodels_tpu" / "__init_
 # numbers as (re, im) pairs, the float32 solvers, threefry keys, jitted
 # wrappers and the mixed-precision reduction; patterns
 TPU_ONLY = ("cplx", "df32*", "*_jit", "key_from_seed", "_nansum_re_mixed")
-# the factor-HJM names still to port (ROADMAP section 1, item 4): the futures
-# option chain waits for the rate MC and ivol helpers
-FACTOR_HJM = ("FutOptionChain",)
-# the factor-HJM names the port has
+# the factor-HJM names, all ported
 FACTOR_HJM_PORTED = ("Cheyette1D", "CheyettePEND", "FutSettleType", "Measure",
                      "MultiFactRateLogSvParams", "NelsonSiegel", "RateFutLogSVPricer",
                      "RateLogSVPricer", "RateLogSvParams", "TermStructure", "UnderlyingType",
-                     "SwOptionChain", "swaption_cube_greeks")
+                     "SwOptionChain", "FutOptionChain", "swaption_cube_greeks")
 
 
 def jax_top_level_names():
@@ -42,7 +38,7 @@ def jax_top_level_names():
 
 
 def is_excepted(name: str) -> bool:
-    return name in FACTOR_HJM or any(fnmatch.fnmatchcase(name, p) for p in TPU_ONLY)
+    return any(fnmatch.fnmatchcase(name, p) for p in TPU_ONLY)
 
 
 def test_the_jax_init_exports_many_names():
@@ -57,10 +53,10 @@ def test_port_exports_every_top_level_name_of_the_jax_package():
     assert not missing, missing
 
 
-@pytest.mark.parametrize("name", FACTOR_HJM)
-def test_each_listed_exception_is_still_missing_from_the_port(name):
-    assert name in dict(jax_top_level_names()), f"{name} is not a JAX top-level name"
-    assert not hasattr(svt, name), f"{name} is ported: drop it from the exception list"
+def test_only_tpu_names_are_excepted():
+    excepted = [n for n, _ in jax_top_level_names() if is_excepted(n)]
+    assert all(n.startswith(("cplx", "df32", "key_from_seed", "_nansum")) or n.endswith("_jit")
+               for n in excepted), excepted
 
 
 @pytest.mark.parametrize("name", ["compute_bsm_vanilla_price_vector",
