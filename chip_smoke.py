@@ -77,12 +77,22 @@ iterations captured against eager bit for bit and the card against the CPU)
 and the pricer's fit; then the rates Monte Carlo: calc_mc_vols on the 1y row
 at 100,000 paths against the DE pricer, the annuity and T-forward paths at
 injected normals card against CPU, and one futures expiry against the DE
-futures pricer.  The greeks, the terminal models, the sweeps and the rates
+futures pricer.  Then the device mesh (``parallel/mesh.py``): the
+path-sharded LogSV MC at 2^20 paths x 361 steps on ``make_path_mesh()`` and
+on two shards of one card, each shard equal bit for bit to a direct kernel
+call at its seed and held to its plain version, the BTC chain from the
+gathered paths within its MC band (the run's launches count in logsv_mc's);
+the LM sweeps of 8 perturbed BTC chains and the USD cube's reprice and two
+cube-LM iterations on the same meshes, against ``mesh=None``.  Then a
+``device_trace`` with ``annotate`` regions around a LogSV MC chain call and
+a captured Hawkes reprice, and the reference-style ``stochvolmodels`` names
+after ``compat.install()`` in a fresh interpreter, equal bit for bit to the
+port's call.  The greeks, the terminal models, the sweeps and the rates
 cube run in a side process started after the kernel timings (the rough rules
-run before it), and the rates calibration and Monte Carlo in a second one,
-beside the calibration and graph phases: all are bound by host launch work;
-the walls of the phases that overlap include the other processes' load on
-the card.  Each phase prints one line, and a ``[phase-walls]`` line their walls; any
+and the sharded MC run before it), and the rates calibration, Monte Carlo and
+mesh cube in a second one, beside the calibration and graph phases: all are
+bound by host launch work; the walls of the phases that overlap include the
+other processes' load on the card.  Each phase prints one line, and a ``[phase-walls]`` line their walls; any
 failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 it exits 1 and prints no result.
@@ -184,6 +194,17 @@ GMM_PARAMS = dict(gmm_weights=np.array([0.2, 0.5, 0.3]), gmm_mus=np.array([-0.8,
 # SWEEP_CHECK_ITERS iterations (an eager LM iteration is seconds of host launches)
 SWEEP_CHAINS, SWEEP_ITERS, SWEEP_YEAR_STEPS = 64, 16, 360
 SWEEP_CHECK_CHAINS, SWEEP_CHECK_ITERS = 4, 2
+# the device mesh: the path-sharded LogSV MC at 2^20 paths x 361 steps (BASELINE config 3's
+# shape) on make_path_mesh() (every card of the host) and on two shards of one card,
+# each shard held to a direct kernel call at its seed and to its plain version; the BTC chain
+# from the gathered paths of make_path_mesh() within tests/test_logsv.py's band; the LM sweeps
+# of MESH_SWEEP_CHAINS perturbed BTC chains (MESH_SWEEP_ITERS iterations, LogSV at
+# MESH_SWEEP_YEAR_STEPS) and the USD cube's reprice and MESH_CUBE_ITERS cube-LM iterations on
+# the same meshes against mesh=None
+MESH_TWO_SHARDS = ("cuda:0", "cuda:0")
+MESH_SEED = 11
+MESH_SWEEP_CHAINS, MESH_SWEEP_ITERS, MESH_SWEEP_YEAR_STEPS = 8, 4, 180
+MESH_CUBE_ITERS = 2
 SWEEP_LOGSV_P0 = dict(sigma0=0.8, theta=1.0, kappa1=2.21, kappa2=2.21, beta=0.15, volvol=1.85)
 SWEEP_HESTON_P0 = dict(v0=0.8 ** 2, theta=1.3 ** 2, kappa=4.0, volvol=1.5, rho=0.1)
 
@@ -1451,6 +1472,244 @@ def _terminal_models_phase(svt, graphs, chain) -> None:
               f"gradient), warm-started: " + "; ".join(parts) + f" | {smi}", flush=True)
 
 
+def _mesh_phase(svt, cuda_mc, mc_variants, chain, analytic) -> tuple:
+    """the path-sharded LogSV MC (``parallel/mesh.py``) at 2^20 paths x 361
+    steps on ``make_path_mesh()`` and on two shards of one card, then the
+    BTC chain from the gathered paths of ``make_path_mesh()``, slice by
+    slice: every launch of that run counted.  Each shard equals a direct
+    kernel call at its offset seed bit for bit (so the gathered tensors are
+    their concatenation), and is held to its plain version (1e-4 in x, 1e-4
+    |plain| + 1e-4 in sigma and qvar); the chain's MC prices lie in
+    tests/test_logsv.py's band of ``analytic``.  Returns (the run's logsv_mc
+    launches, the largest error against the plain versions)."""
+    from stochvolmodels_torch.parallel import mesh
+    from stochvolmodels_torch.utils.funcs import set_time_grid
+
+    smi = _smi_name_and_power()
+    P = svt.LOGSV_BTC_PARAMS
+    kw = dict(ttm=THROUGHPUT_TTM, theta=P.theta, kappa1=P.kappa1, kappa2=P.kappa2, beta=P.beta,
+              volvol=P.volvol, nb_steps_per_year=MC_STEPS_PER_YEAR)
+    nb_steps = set_time_grid(THROUGHPUT_TTM, MC_STEPS_PER_YEAR)[0]
+    meshes = {"make_path_mesh()": mesh.make_path_mesh(),
+              "two shards of cuda:0": mesh.make_path_mesh(MESH_TWO_SHARDS)}
+    sharded = lambda m, **extra: mesh.simulate_logsv_terminal_kernel_sharded(
+        m, MESH_SEED, NB_PATH, sigma0=P.sigma0, **dict(kw, **extra))
+
+    # the mesh path, counted
+    _reset_counts(cuda_mc, mc_variants)
+    outs = {name: sharded(m) for name, m in meshes.items()}
+    chain_paths = [sharded(meshes["make_path_mesh()"], ttm=float(t)) for t in chain.ttms]
+    torch.cuda.synchronize()
+    counts = _counts(cuda_mc, mc_variants)
+    launches = counts["logsv_mc"]
+    want = sum(m.size for m in meshes.values()) + len(chain.ttms) * meshes["make_path_mesh()"].size
+    _check(launches == want and sum(counts.values()) == launches,
+           f"the mesh path launched {counts}, expected {want} logsv_mc launches")
+
+    err = 0.0
+    for name, m in meshes.items():
+        local = NB_PATH // m.size
+        direct, shard_ms = [], []
+        for i, dev in enumerate(m.devices):
+            state = (torch.zeros(local, dtype=torch.float32, device=dev),
+                     torch.full((local,), P.sigma0, dtype=torch.float32, device=dev),
+                     torch.zeros(local, dtype=torch.float32, device=dev))
+            seed = MESH_SEED + mesh.SEED_STRIDE * i
+            run = lambda: cuda_mc.simulate_logsv_terminal_kernel(seed, *state, **kw)
+            direct.append(run())
+            err = max(err, _vs_plain(f"logsv_mc shard {i} of {name}", nb_steps, direct[-1],
+                                     cuda_mc.simulate_logsv_terminal_torch(seed, *state, **kw),
+                                     ("x", "sigma", "qvar"), atol=1e-4))
+            run()
+            shard_ms.append(_event_ms(run, 10))
+        for k, label in enumerate(("x", "sigma", "qvar")):
+            _check(torch.equal(outs[name][k], torch.cat([d[k].to(m.devices[0]) for d in direct])),
+                   f"{name}: the gathered {label} differs from the shards' direct calls")
+        wall_ms = _warm_ms(lambda: [t.cpu() for t in sharded(m)], repeats=5)
+        print(f"[mesh] simulate_logsv_terminal_kernel_sharded on {name} ({m.size} shard(s) of "
+              f"{local} paths x {nb_steps} steps): each shard equal bit for bit to a direct "
+              f"kernel call at seed {MESH_SEED} + 1,000,003 i, so the gathered tensors are their "
+              f"concatenation; shard kernel ms {[round(t, 4) for t in shard_ms]} (CUDA events, "
+              f"mean of 10); warm wall {wall_ms:.3f} ms with the read back (median of 5) | {smi}",
+              flush=True)
+
+    mc, std = [], []
+    for i, (x, sig, qvar) in enumerate(chain_paths):
+        p, s = svt.compute_mc_vars_payoff(x, sig, qvar, ttm=chain.ttms[i],
+                                          forward=chain.forwards[i],
+                                          strikes_ttm=chain.strikes_ttms[i],
+                                          optiontypes_ttm=chain.optiontypes_ttms[i],
+                                          discfactor=chain.discfactors[i])
+        mc.append(p)
+        std.append(s)
+    worst = _mc_band(chain, analytic, mc, std, "sharded MC chain")
+    print(f"[mesh] BTC chain from the gathered paths of make_path_mesh() ({NB_PATH} paths, "
+          f"{MC_STEPS_PER_YEAR} steps/yr, one sharded call a slice): max |MC - analytic| / (4 "
+          f"stderr + 1.5% + 1e-4 fwd) {worst:.3f}; the mesh path launched logsv_mc {launches} "
+          f"times (the kernels line counts them) | {smi}", flush=True)
+    return launches, err
+
+
+def _mesh_sweep_phase(svt, graphs, chain) -> None:
+    """the LogSV and Heston LM sweeps of MESH_SWEEP_CHAINS perturbed BTC
+    chains with ``mesh=make_path_mesh()`` (bit for bit the ``mesh=None``
+    sweep) and on two shards of one card (1e-12 relative), with walls."""
+    import dataclasses
+
+    from stochvolmodels_torch.parallel import sweep
+    from stochvolmodels_torch.parallel.mesh import make_path_mesh
+
+    smi = _smi_name_and_power()
+    scales = np.linspace(0.90, 1.10, MESH_SWEEP_CHAINS)
+    chains = [dataclasses.replace(chain, bid_ivs=[s * iv for iv in chain.bid_ivs],
+                                  ask_ivs=[s * iv for iv in chain.ask_ivs]) for s in scales]
+    logsv_p0, heston_p0 = svt.LogSvParams(**SWEEP_LOGSV_P0), svt.HestonParams(**SWEEP_HESTON_P0)
+    models = {
+        "LogSV": (lambda mesh: sweep.calibrate_logsv_lm_sweep(
+                      chains, logsv_p0, nb_iters=MESH_SWEEP_ITERS,
+                      year_steps=MESH_SWEEP_YEAR_STEPS, mesh=mesh, device=DEVICE),
+                  lambda p, c: [p.sigma0, p.theta, p.kappa1, p.beta, p.volvol, c]),
+        "Heston": (lambda mesh: sweep.calibrate_heston_lm_sweep(
+                       chains, heston_p0, nb_iters=MESH_SWEEP_ITERS, mesh=mesh, device=DEVICE),
+                   lambda p, c: [p.v0, p.theta, p.kappa, p.rho, p.volvol, c])}
+    meshes = {"mesh=None": None, "make_path_mesh()": make_path_mesh(),
+              "two shards of cuda:0": make_path_mesh(MESH_TWO_SHARDS)}
+    for name, (run, vector) in models.items():
+        fits, walls = {}, {}
+        for label, mesh in meshes.items():
+            run(mesh)   # the first call captures
+            fits[label], walls[label] = _timed_s(lambda: run(mesh))
+        base = np.array([vector(p, c) for p, c in fits["mesh=None"]])
+        _check(bool(np.all(np.isfinite(base))), f"{name} mesh sweep: {base}")
+        _check(_same(fits["make_path_mesh()"], fits["mesh=None"]),
+               f"{name} sweep on make_path_mesh() differs from mesh=None")
+        two = np.array([vector(p, c) for p, c in fits["two shards of cuda:0"]])
+        gap = float(np.max(np.abs(two - base) / np.abs(base)))
+        _check(gap <= 1e-12, f"{name} sweep on two shards against mesh=None: relative gap {gap}")
+        print(f"[mesh-sweep] {name} LM sweep of {MESH_SWEEP_CHAINS} perturbed BTC chains, "
+              f"{MESH_SWEEP_ITERS} iterations"
+              + (f" at {MESH_SWEEP_YEAR_STEPS} steps/yr" if name == "LogSV" else "")
+              + f": make_path_mesh() ({meshes['make_path_mesh()'].size} card) equal bit for bit "
+              f"to mesh=None; two shards of cuda:0 (one graph of {MESH_SWEEP_CHAINS // 2} chains, "
+              f"replayed per shard) against mesh=None max relative gap {gap:.2e}; warm walls "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()) + f" | {smi}", flush=True)
+
+
+def _profiling_phase(svt, chain, gpu, kgpu) -> None:
+    """``device_trace`` around one warm LogSV MC chain call through logsv_mc
+    and one warm captured Hawkes reprice (one CUDA graph), each in an
+    ``annotate`` region: the trace holds both region names and a logsv_mc
+    kernel event; its size, the traced wall and the untraced wall."""
+    import os
+    import shutil
+    import tempfile
+
+    from stochvolmodels_torch.utils.profiling import (
+        TRACE_FILE,
+        annotate,
+        device_trace,
+        wall_and_device_time,
+    )
+
+    smi = _smi_name_and_power()
+    P, HP = svt.LOGSV_BTC_PARAMS, svt.HawkesJDParams()
+    mc_call = lambda: gpu.model_mc_price_chain(chain, P, engine="cuda", nb_path=NB_PATH, seed=24,
+                                               nb_steps=MC_STEPS_PER_YEAR)
+    reprice = lambda: kgpu.price_chain(chain, HP)
+
+    def both():
+        with annotate("logsv_mc_chain"):
+            mc_call()
+        with annotate("hawkes_captured_reprice"):
+            reprice()
+
+    both()   # warm: the reprice's graph is captured (or replayed)
+    with wall_and_device_time() as untraced:
+        both()
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        t0 = time.perf_counter()
+        with device_trace(trace_dir) as d:
+            with wall_and_device_time() as traced:
+                both()
+        trace_s = time.perf_counter() - t0
+        path = os.path.join(d, TRACE_FILE)
+        size = os.path.getsize(path)
+        events = json.load(open(path))["traceEvents"]
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    names = {e.get("name", "") for e in events}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    mc_kernels = [e for e in kernels if "logsv_mc" in e.get("name", "")]
+    _check({"logsv_mc_chain", "hawkes_captured_reprice"} <= names,
+           "the trace lacks an annotate region")
+    # the chain call launches one logsv_mc a slice; the profiler may drop a kernel record
+    # under load, so the gate asks for one
+    _check(len(mc_kernels) >= 1, "the trace holds no logsv_mc kernel event")
+    print(f"[profiling] device_trace around one LogSV MC chain call ({NB_PATH} paths) and one "
+          f"captured Hawkes reprice, each in an annotate region: trace {size / 2 ** 20:.1f} MiB, "
+          f"{len(events)} events, {len(kernels)} kernel events ({len(mc_kernels)} logsv_mc of "
+          f"{len(chain.ttms)} launched); both "
+          f"regions present; wall_and_device_time of the two calls: traced {traced['wall_s']:.3f} "
+          f"s, untraced {untraced['wall_s']:.3f} s; the whole device_trace block (its start, "
+          f"stop and export included) {trace_s:.3f} s | {smi}", flush=True)
+
+
+# run by _compat_phase in a fresh interpreter: the examples' uniform chain through the
+# stochvolmodels names, its prices and vols printed as float hex
+_COMPAT_CHILD = r'''
+import json
+import numpy as np
+import stochvolmodels_torch.compat as compat
+compat.install()
+import stochvolmodels as sv
+from stochvolmodels import LogSvParams, LogSVPricer, OptionChain
+assert sv is compat
+chain = OptionChain.get_uniform_chain(ttms=np.array([0.083, 0.25]), ids=np.array(["1m", "3m"]),
+                                      strikes=np.linspace(0.9, 1.1, 3))
+params = LogSvParams(sigma0=1.0, theta=1.0, kappa1=5.0, kappa2=5.0, beta=0.2, volvol=2.0)
+prices, vols = LogSVPricer().compute_chain_prices_with_vols(option_chain=chain, params=params)
+print(json.dumps([[float(v).hex() for v in a] for a in list(prices) + list(vols)]))
+'''
+
+
+def _start_compat_phase():
+    """the compat child, started (it runs beside the main process's phases)."""
+    return subprocess.Popen([sys.executable, "-c", _COMPAT_CHILD], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            cwd=str(Path(__file__).resolve().parent))
+
+
+def _compat_phase(svt, child) -> None:
+    """the examples' uniform chain (examples/run_lognormal_sv_pricer.py:87-105)
+    priced through ``stochvolmodels`` names after ``compat.install()`` in a
+    fresh interpreter, equal bit for bit to the same call on
+    ``stochvolmodels_torch`` here."""
+    smi = _smi_name_and_power()
+    try:
+        out, err = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+    _check(child.returncode == 0, f"the compat child failed: {err[-2000:]}")
+    theirs = [np.array([float.fromhex(v) for v in a]) for a in
+              json.loads(out.strip().splitlines()[-1])]
+    chain = svt.OptionChain.get_uniform_chain(ttms=np.array([0.083, 0.25]),
+                                              ids=np.array(["1m", "3m"]),
+                                              strikes=np.linspace(0.9, 1.1, 3))
+    params = svt.LogSvParams(sigma0=1.0, theta=1.0, kappa1=5.0, kappa2=5.0, beta=0.2, volvol=2.0)
+    prices, vols = svt.LogSVPricer(device=DEVICE).compute_chain_prices_with_vols(chain, params)
+    ours = [np.asarray(a, dtype=float) for a in list(prices) + list(vols)]
+    _check(len(ours) == len(theirs) and all(np.array_equal(a, b) for a, b in zip(ours, theirs)),
+           f"compat prices {theirs} differ from the port's {ours}")
+    _check(all(np.all(np.isfinite(a)) for a in ours), "compat prices not finite")
+    print(f"[compat] compat.install() in a fresh interpreter, then the examples' uniform chain "
+          f"(1m, 3m x 3 strikes) through stochvolmodels.LogSVPricer: prices and vols equal bit "
+          f"for bit to stochvolmodels_torch's; vols {np.round(np.concatenate(ours[2:]), 4).tolist()}"
+          f" | {smi}", flush=True)
+
+
 def _sweep_phase(svt, graphs, chain) -> None:
     """the LogSV and Heston LM sweeps of SWEEP_CHAINS perturbed BTC chains,
     each one CUDA graph: capture and warm walls, chains/s, peak memory,
@@ -1880,6 +2139,63 @@ def _rates_calib_phase(svt, graphs, chain) -> None:
           f"{1e4 * float(np.sqrt(pcost / n_quotes)):.2f} bp | {smi}", flush=True)
 
 
+def _mesh_cube_phase(svt, graphs, chain) -> None:
+    """the USD cube's frozen reprice and MESH_CUBE_ITERS cube-LM iterations
+    (48 steps/yr, from the calibration's start point) with
+    ``mesh=make_path_mesh()`` (bit for bit the ``mesh=None`` call) and on
+    two shards of one card (1e-12 relative), each shard through its own
+    graphs; walls beside mesh=None's."""
+    del chain
+    from stochvolmodels_torch.models.factor_hjm import fast_calibration as fc
+    from stochvolmodels_torch.models.factor_hjm import rate_logsv_pricer as rates
+    from stochvolmodels_torch.parallel.mesh import make_path_mesh
+
+    smi = _smi_name_and_power()
+    sw_chain, params = _usd_swaption_cube(svt)
+    slices, fwds, strikes, market = fc.swaption_chain_to_cube(sw_chain,
+                                                              max_expiry=RATES_MAX_EXPIRY)
+    cube_rows = (slices, fwds, strikes)
+    start = _rates_start(params)
+    meshes = {"mesh=None": None, "make_path_mesh()": make_path_mesh(),
+              "two shards of cuda:0": make_path_mesh(MESH_TWO_SHARDS)}
+    prices, fits, walls, parts = {}, {}, {}, []
+    for label, mesh in meshes.items():
+        cube, _ = rates.make_swaption_cube_fn(params, *cube_rows, mesh=mesh, device=DEVICE)
+        parts = [p.mask.shape[0] for p in getattr(cube, "parts", [])] or parts
+        args = cube.primals()
+        cube(*args)   # the first call captures
+        prices[label], reprice_s = _timed_s(lambda: cube(*args).cpu().numpy())
+        lm = lambda: fc.calibrate_rate_logsv_cube_lm_on_device(
+            start, *cube_rows, market, nb_iters=MESH_CUBE_ITERS,
+            year_steps=RATES_CALIB_YEAR_STEPS, mesh=mesh, device=DEVICE)
+        lm()
+        fits[label], lm_s = _timed_s(lm)
+        walls[label] = (1e3 * reprice_s, lm_s)
+    base_fit, base_cost = fits["mesh=None"]
+    vector = lambda f, c: np.concatenate([f.beta.xs.ravel(), f.volvol.xs, [c]])
+    one_fit, one_cost = fits["make_path_mesh()"]
+    _check(np.array_equal(prices["make_path_mesh()"], prices["mesh=None"])
+           and np.array_equal(vector(one_fit, one_cost), vector(base_fit, base_cost)),
+           "the cube on make_path_mesh() differs from mesh=None")
+    price_gap = float(np.max(np.abs(prices["two shards of cuda:0"] - prices["mesh=None"]))
+                      / np.max(np.abs(prices["mesh=None"])))
+    two = vector(*fits["two shards of cuda:0"])
+    base = vector(base_fit, base_cost)
+    nz = base != 0.0
+    fit_gap = float(np.max(np.abs(two - base)[nz] / np.abs(base[nz])))
+    _check(bool(np.all(np.isfinite(prices["mesh=None"]))) and price_gap <= 1e-12
+           and fit_gap <= 1e-12 and np.array_equal(two[~nz], base[~nz]),
+           f"the cube on two shards against mesh=None: prices {price_gap}, LM {fit_gap}")
+    print(f"[mesh-cube] USD cube {len(slices)} x 9: make_path_mesh() equal bit for bit to "
+          f"mesh=None (reprice and {MESH_CUBE_ITERS} LM iterations at {RATES_CALIB_YEAR_STEPS} "
+          f"steps/yr); two shards of cuda:0 ({parts} slices, one reprice graph and one jac "
+          f"and one residual graph a shard) against mesh=None: prices "
+          f"{price_gap:.2e} of the largest price, LM parameters and cost max relative gap "
+          f"{fit_gap:.2e} (cost {base_cost:.6e}); warm reprice ms / LM s: "
+          + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.3f}" for k, v in walls.items())
+          + f" | {smi}", flush=True)
+
+
 def _mc_band_gate(mc, ups, downs, analytic, what) -> float:
     """the largest |MC vol - analytic vol| over the wider of 10% of the
     analytic vol and the MC vol's 1.96-stderr band; fails above 1."""
@@ -2006,12 +2322,12 @@ def _rates_mc_phase(svt, graphs, chain) -> None:
 
 
 # the phases that run in the side process, in order: none launches a hand-written kernel
-SIDE_PHASES = ("greeks", "terminal-models", "sweep", "rates-cube")
+SIDE_PHASES = ("greeks", "terminal-models", "sweep", "mesh-sweep", "rates-cube")
 
 
 # the factor-HJM calibration and Monte Carlo, in a second side process: host bound too, and
 # their CPU references take minutes of host time
-RATES_SIDE_PHASES = ("rates-calib", "rates-mc")
+RATES_SIDE_PHASES = ("rates-calib", "rates-mc", "mesh-cube")
 
 
 def _side_phases(conn, names) -> None:
@@ -2025,8 +2341,9 @@ def _side_phases(conn, names) -> None:
 
         chain = svt.get_btc_test_chain_data()
         phases = {"greeks": _greeks_phase, "terminal-models": _terminal_models_phase,
-                  "sweep": _sweep_phase, "rates-cube": _rates_cube_phase,
-                  "rates-calib": _rates_calib_phase, "rates-mc": _rates_mc_phase}
+                  "sweep": _sweep_phase, "mesh-sweep": _mesh_sweep_phase,
+                  "rates-cube": _rates_cube_phase, "rates-calib": _rates_calib_phase,
+                  "rates-mc": _rates_mc_phase, "mesh-cube": _mesh_cube_phase}
         if names == RATES_SIDE_PHASES:
             # the CPU references of these phases share the host with two more processes
             torch.set_num_threads(2)
@@ -2450,10 +2767,17 @@ def main() -> int:
     from stochvolmodels_torch.ops import graphs
     rough_rules = timed("rough-rules", _rough_rules_phase, svt, cuda_mc, mc_variants, chain)
     err["rough_mc"] = max([err["rough_mc"]] + [e for _, _, e in rough_rules.values()])
-    # 12.-14. the greeks, the terminal models and the LM sweeps in a side process, beside
-    # the phases below: all of them are bound by host launch work, not by the card
+    # the path-sharded MC on the device mesh, its shards' kernel times on a quiet card too; its
+    # launches are logsv_mc's beside the MC chain call's
+    mesh_launches, mesh_err = timed("mesh", _mesh_phase, svt, cuda_mc, mc_variants, chain, prices)
+    launches["logsv_mc"] += mesh_launches
+    err["logsv_mc"] = max(err["logsv_mc"], mesh_err)
+    # 12.-14. the greeks, the terminal models, the LM sweeps (one GPU and the mesh) and the rates
+    # cube in a side process, the rates calibration, MC and mesh cube in a second, beside the
+    # phases below: all of them are bound by host launch work, not by the card
     side, side_conn = _start_side_phases()
     rates_side, rates_conn = _start_side_phases(RATES_SIDE_PHASES)
+    compat_child = _start_compat_phase()
     try:
         # 15.-16. calibration and the CUDA graphs of the launch-bound calls
         timed("calibration", _calibration_phase, svt, gpu, chain)
@@ -2477,11 +2801,18 @@ def main() -> int:
                       for k, v in _join_side_phases(side, side_conn).items()})
         walls.update({f"{k} (rates side process)": v
                       for k, v in _join_side_phases(rates_side, rates_conn).items()})
+        # 27.-28. a device trace with named regions, on the card alone once the side processes
+        # have ended; the compat surface, whose fresh interpreter started with them
+        timed("profiling", _profiling_phase, svt, chain, gpu, kgpu)
+        timed("compat", _compat_phase, svt, compat_child)
     finally:
         for process in (side, rates_side):
             if process.is_alive():
                 process.terminate()
                 process.join(30)
+        if compat_child.poll() is None:
+            compat_child.kill()
+            compat_child.communicate()
     print("[phase-walls] s: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
           + f"; total {time.perf_counter() - t_start:.1f}", flush=True)
 

@@ -26,6 +26,14 @@ times (names ``"rates_lm_init"`` and ``"rates_lm_step"``, keyed by the
 cube's shapes, the free vector and the fit's kind): a whole 24-iteration fit
 would be ~10^6 kernel nodes, over three times the LogSV fit's.  Every input
 of a graph is a tensor argument, so fits of one shape share their graphs.
+
+With ``mesh=`` the cube LM splits the slice axis over the mesh's devices
+(:class:`~stochvolmodels_torch.models.factor_hjm.rate_logsv_pricer.ShardedSwaptionCube`):
+each device evaluates the residuals and Jacobian rows of its slices through
+its own graphs (``"rates_lm_jac"``, ``"rates_lm_res"``), the rows are
+gathered on the first device, where the damped step is solved
+(``lm_propose``, ``lm_accept``), and the candidate goes back to every device
+for its residuals.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ import torch
 
 from stochvolmodels_torch.models.factor_hjm.rate_logsv_params import MultiFactRateLogSvParams
 from stochvolmodels_torch.models.factor_hjm.rate_logsv_pricer import (
+    ShardedSwaptionCube,
     SwaptionCubeFn,
     _cube_price,
     _traced_cube_price,
@@ -49,7 +58,14 @@ from stochvolmodels_torch.ops.bachelier import (
     infer_normal_implied_vol,
     infer_normal_implied_vol_fast,
 )
-from stochvolmodels_torch.ops.lm import lm_init, lm_step
+from stochvolmodels_torch.ops.lm import (
+    lm_accept,
+    lm_init,
+    lm_propose,
+    lm_step,
+    residuals_and_jacobian,
+)
+from stochvolmodels_torch.parallel.mesh import gather, on_device
 from stochvolmodels_torch.utils.rate_core import generate_ttms_grid
 
 # the number of leading problem tensors before the cube's constants
@@ -109,6 +125,38 @@ def _lm_run(p0, lower, upper, problem, nb_iters: int, fit_A: bool, nb_free: int,
     return state
 
 
+def _lm_run_sharded(p0, lower, upper, problems, keys, nb_iters: int, fit_A: bool,
+                    nb_free: int, d: int) -> Tuple[torch.Tensor, ...]:
+    """:func:`_lm_run` with the residuals split over devices: ``problems[i]``
+    holds device i's slices.  Each evaluation runs every part on its device
+    (one graph each on a card) before gathering the rows on ``p0``'s
+    device, where the LM state lives and the step is solved."""
+    first = p0.device
+    jac = lambda pars, *prob: residuals_and_jacobian(_residuals_fn(fit_A, nb_free, d, prob), pars)
+    res = lambda pars, *prob: (_residuals_fn(fit_A, nb_free, d, prob)(pars),)
+
+    def on_parts(name, fn, pars):
+        outs = []
+        for prob, key in zip(problems, keys):
+            dev = prob[0].device
+            with on_device(dev):
+                inputs = (pars.to(dev),) + prob
+                outs.append(graphs.run_captured(name, key, fn, inputs)
+                            if graphs.use_graph(inputs[0]) else fn(*inputs))
+        return [gather([o[k] for o in outs], first) for k in range(len(outs[0]))]
+
+    def cost_at(pars):
+        return torch.sum(torch.square(on_parts("rates_lm_res", res, pars)[0]))
+
+    lam = torch.full((), 1e-2, dtype=p0.dtype, device=first)
+    state = (p0, lam, p0, cost_at(p0))
+    for _ in range(nb_iters):
+        J, r = on_parts("rates_lm_jac", jac, state[0])
+        cost, cand = lm_propose(state, J, r, lower, upper)
+        state = lm_accept(state, cost, cand, cost_at(cand))
+    return state
+
+
 def _quote_panels(cube, forwards, strikes_slices, market_ivols_slices, ttms,
                   weights_slices=None) -> Tuple[np.ndarray, ...]:
     """(market, weights, forward, strike, ttm) (P, K_max) panels of the
@@ -155,7 +203,7 @@ def _fit_segments(params: MultiFactRateLogSvParams, cube, fit_A: bool, segments:
                f64(market), f64(weights), f64(fwd), f64(strike), f64(ttm),
                f64(np.ones_like(market)),
                torch.ones(market.shape, dtype=torch.int8, device=device),   # calls
-               torch.as_tensor(take, dtype=torch.int64, device=device)) + cube.consts
+               torch.as_tensor(take, dtype=torch.int64, device=device))
     p0 = [beta0[segments].ravel(), volvol0[segments]]
     lower = [np.full(nb_free * d, -beta_bound), np.full(nb_free, volvol_bounds[0])]
     upper = [np.full(nb_free * d, beta_bound), np.full(nb_free, volvol_bounds[1])]
@@ -163,9 +211,23 @@ def _fit_segments(params: MultiFactRateLogSvParams, cube, fit_A: bool, segments:
         p0.append(A0[segments].ravel())
         lower.append(np.full(nb_free * d, A_bounds[0]))
         upper.append(np.full(nb_free * d, A_bounds[1]))
-    state = _lm_run(f64(np.concatenate(p0)), f64(np.concatenate(lower)),
-                    f64(np.concatenate(upper)), problem, nb_iters, fit_A, nb_free, d,
-                    cube.key + (take.size,))
+    p0, lower, upper = (f64(np.concatenate(v)) for v in (p0, lower, upper))
+    if isinstance(cube, ShardedSwaptionCube):
+        # every quote of the cube, in order: each part takes its slices' rows
+        assert np.array_equal(take, np.arange(market.size)), "a sharded fit takes every quote"
+        K_max = market.shape[1]
+        problems, keys = [], []
+        for (start, stop), part in zip(cube.bounds, cube.parts):
+            dev = part.device
+            panels = tuple(t[start:stop].to(dev) for t in problem[8:15])
+            take_part = torch.arange((stop - start) * K_max, device=dev)
+            problems.append(tuple(t.to(dev) for t in problem[:8]) + panels + (take_part,)
+                            + part.consts)
+            keys.append((fit_A, nb_free, d) + part.key + (take_part.numel(),))
+        state = _lm_run_sharded(p0, lower, upper, problems, keys, nb_iters, fit_A, nb_free, d)
+    else:
+        state = _lm_run(p0, lower, upper, problem + cube.consts, nb_iters, fit_A, nb_free, d,
+                        cube.key + (take.size,))
     best = state[2].cpu().numpy()
     fitted = copy.deepcopy(params)
     for j, seg in enumerate(segments):
@@ -282,8 +344,10 @@ def calibrate_rate_logsv_cube_lm_on_device(
     through the structural panels.  The cube builders' own keywords pass
     through ``cube_kwargs``; those of the other builder (``panel_rtol`` and
     ``panel_atol`` of the frozen one, ``n_sub`` of the traced one) are
-    dropped, so that toggling ``fit_A`` never raises.  ``mesh`` must be
-    None.  Returns ``(updated params copy, best cost)``.
+    dropped, so that toggling ``fit_A`` never raises.  ``mesh`` (a
+    ``PathMesh``) splits the cube's slices over its devices, with the LM
+    state on the first (``device`` is then unused); on one device it is the
+    unsharded fit.  Returns ``(updated params copy, best cost)``.
     """
     n_seg = params.beta.xs.shape[0]
     if segments is None:

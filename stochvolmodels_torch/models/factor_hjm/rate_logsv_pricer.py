@@ -21,10 +21,12 @@ steps, expansion order); each Monte Carlo segment between requested
 maturities is one graph (``"rates_mc"``, ``"rates_futures_mc"``), its
 normals drawn before the replay.  The ``engine=`` argument of the JAX
 package ('auto' | 'f64' | 'df32') is accepted and always runs
-float64/complex128; ``mesh=`` must be None.
+float64/complex128.  ``mesh=`` (``parallel/mesh.py``) splits a cube's slice
+axis over several devices (:class:`ShardedSwaptionCube`).
 """
 from __future__ import annotations
 
+import copy
 from enum import Enum
 from typing import Optional, Tuple
 
@@ -57,6 +59,13 @@ from stochvolmodels_torch.models.model_pricer import ModelPricer
 from stochvolmodels_torch.ops import graphs
 from stochvolmodels_torch.ops.bachelier import infer_normal_ivols_from_slice_prices
 from stochvolmodels_torch.ops.random import generator_from_seed, step_normals
+from stochvolmodels_torch.parallel.mesh import (
+    PathMesh,
+    check_mesh,
+    gather,
+    on_device,
+    shard_bounds,
+)
 from stochvolmodels_torch.utils.funcs import set_time_grid
 from stochvolmodels_torch.utils.rate_core import (
     bracket,
@@ -81,12 +90,10 @@ class FutSettleType(Enum):
     SOFR = 2
 
 
-def _check_signature_only(engine: str, mesh) -> None:
-    """``engine`` and ``mesh`` are kept for the JAX package's signature."""
+def _check_signature_only(engine: str) -> None:
+    """``engine`` is kept for the JAX package's signature."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
-    if mesh is not None:
-        raise NotImplementedError("mesh: the port prices a cube on one device; pass mesh=None")
 
 
 # ----------------------------------------------------------------------------
@@ -454,6 +461,8 @@ class SwaptionCubeFn:
         ) + nodes + (
             on(moneyness), on([theta, float(params.kappa1), float(params.kappa2)]),
         ) + templates_on(theta, n, device)
+        # the slice axis of each constant (None: shared by every slice)
+        self.slice_axes = (0,) * 7 + (None,) * len(nodes) + (0, None) + (None,) * 7
         self.key = (P, T, d, K_max, nb_steps, nodes[0].shape[0], n, str(device))
         self.mask = torch.as_tensor(mask, device=device)
         self.sigma0 = float(params.sigma0)
@@ -482,6 +491,66 @@ class SwaptionCubeFn:
         return self.price_and_dead(sigma0, beta_xs, volvol_xs)[0]
 
 
+class ShardedSwaptionCube:
+    """a cube pricer (:class:`SwaptionCubeFn` or
+    :class:`TracedSwaptionCubeFn`) with its slice axis P split over a mesh.
+
+    Device i holds the contiguous slices ``bounds[i]`` of the cube: its part
+    of every per-slice constant, its own copy of the shared ones, and its
+    own graph on a card (the part's key carries its slice count and
+    device).  A call moves the arguments to every part, launches every part
+    before reading any back, and gathers the (P, K_max) prices and (P, N)
+    dead nodes on the mesh's first device, where ``mask`` lies.  Devices
+    left without a slice (P < mesh size) hold no part.
+    """
+
+    def __init__(self, cube, mesh: PathMesh):
+        assert len(cube.slice_axes) == len(cube.consts)
+        self.full = cube
+        self.device = mesh.devices[0]
+        self.mask = cube.mask
+        self.bounds, self.parts = [], []
+        for (start, stop), dev in zip(shard_bounds(cube.mask.shape[0], mesh), mesh.devices):
+            if stop == start:
+                continue
+            part = copy.copy(cube)
+            part.device = dev
+            part.consts = tuple(
+                (c if axis is None else c.narrow(axis, start, stop - start).contiguous()).to(dev)
+                for c, axis in zip(cube.consts, cube.slice_axes))
+            part.key = (stop - start,) + cube.key[1:-1] + (str(dev),)
+            part.mask = cube.mask[start:stop].to(dev)
+            self.bounds.append((start, stop))
+            self.parts.append(part)
+
+    def primals(self, *args) -> Tuple[torch.Tensor, ...]:
+        """the whole cube's arguments, on the first device."""
+        return self.full.primals(*args)
+
+    def price_and_dead(self, *args) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(prices (P, K_max), dead nodes (P, N)) on the first device, each
+        part through its graph on a card."""
+        args = self.full.primals(*args)
+        outs = []
+        for part in self.parts:
+            with on_device(part.device):
+                outs.append(part.price_and_dead(*(a.to(part.device) for a in args)))
+        return gather([o[0] for o in outs], self.device), gather([o[1] for o in outs], self.device)
+
+    def __call__(self, *args) -> torch.Tensor:
+        return self.price_and_dead(*args)[0]
+
+
+def _on_mesh(cube, mesh: Optional[PathMesh]):
+    """``cube`` split over ``mesh`` where it has more than one device."""
+    return cube if mesh is None or mesh.size == 1 else ShardedSwaptionCube(cube, mesh)
+
+
+def _cube_device(device, mesh: Optional[PathMesh]):
+    """where a cube is built: the mesh's first device, else ``device``."""
+    return device if mesh is None else check_mesh(mesh).devices[0]
+
+
 def make_swaption_slice_fn(params: MultiFactRateLogSvParams,
                            t_grid: np.ndarray,
                            ttm: float,
@@ -505,7 +574,7 @@ def make_swaption_slice_fn(params: MultiFactRateLogSvParams,
     single-slice solver's default) on the slice's own ``t_grid``.
     ``engine`` is kept for the signature.
     """
-    _check_signature_only(engine, None)
+    _check_signature_only(engine)
     t_grid_cut, _, idx_t, swap_gr, loga_der, C_panel = params.qa_structural_panels(
         expiry=float(ttm), tenor=tenor, t_grid=t_grid, x0=x0, y0=y0)
     nb_steps = max(int(np.ceil(360 * float(ttm))), 16)
@@ -545,9 +614,12 @@ def make_swaption_cube_fn(params: MultiFactRateLogSvParams,
     count S = max(ceil(year_steps max(expiry)), 16) and per-slice dt, and
     the tanh-sinh inversion broadcasts over (P, N, K).  Returns ``(price,
     mask)``: a :class:`SwaptionCubeFn` and the (P, K_max) validity panel.
-    ``engine`` and ``mesh`` (which must be None) are kept for the signature.
+    ``mesh`` (a ``PathMesh``) splits the slice axis over its devices, with
+    the cube built on the first (``device`` is then unused): a
+    :class:`ShardedSwaptionCube` where the mesh has more than one device.
+    ``engine`` is kept for the signature.
     """
-    _check_signature_only(engine, mesh)
+    _check_signature_only(engine)
     P = len(slices)
     assert len(forwards) == P and len(strikes_slices) == P
     ttms = np.array([float(e) for e, _ in slices])
@@ -560,8 +632,8 @@ def make_swaption_cube_fn(params: MultiFactRateLogSvParams,
             rtol=panel_rtol, atol=panel_atol)
         panels.append((float(expiry), np.asarray(t_grid_cut, dtype=float), idx_t, swap_gr,
                        loga_der, C_panel))
-    cube = SwaptionCubeFn(params, panels, strikes_slices, forwards, nb_steps, expansion_order,
-                          h, x_max, device)
+    cube = _on_mesh(SwaptionCubeFn(params, panels, strikes_slices, forwards, nb_steps,
+                                   expansion_order, h, x_max, _cube_device(device, mesh)), mesh)
     return cube, cube.mask
 
 
@@ -627,6 +699,12 @@ class TracedSwaptionCubeFn:
             on(x0), on(y0), on(interp[0], torch.int64), on(interp[1], torch.int64),
             on(interp[2]), on(step_multipliers(dts)),
         ) + nodes + (on(moneyness), on(theta)) + templates_on(theta, n, device)
+        # the slice axis of each constant (None: shared by every slice); the
+        # mean-ODE stage panels are (S, 3, P, ...)
+        self.slice_axes = tuple(2 if f in ("seg_stage", "BX_st", "BY_st", "P0r_st")
+                                else None if f in ("D_X", "D_Y", "W_omega", "inv_B", "R_chol")
+                                else 0 for f in QAGeometryTensors._fields) \
+            + (0,) * 6 + (None,) * len(nodes) + (0, None) + (None,) * 7
         self.key = (P, geom.t_grids.shape[1], geom.seg_stage.shape[0], geom.dcf.shape[1], d,
                     n_aux, mask.shape[1], nb_steps, nodes[0].shape[0], n, str(device))
         self.nb_steps = nb_steps
@@ -688,14 +766,15 @@ def make_swaption_cube_fn_traced(params: MultiFactRateLogSvParams,
     ``solve_ivp`` at n_sub = 2), where the frozen cube follows scipy at
     rtol 1e-3.  Returns ``(price, mask)``: a :class:`TracedSwaptionCubeFn`,
     ``price(sigma0, A_xs, beta_xs, volvol_xs, kappa1, kappa2) -> (P,
-    K_max)``, and the validity panel.  ``engine`` and ``mesh`` (which must be
-    None) are kept for the signature.
+    K_max)``, and the validity panel.  ``mesh`` splits the slice axis as in
+    :func:`make_swaption_cube_fn`; ``engine`` is kept for the signature.
     """
-    _check_signature_only(engine, mesh)
+    _check_signature_only(engine)
     assert len(forwards) == len(slices) and len(strikes_slices) == len(slices)
     cube = TracedSwaptionCubeFn(params, slices, forwards, strikes_slices, expansion_order,
-                                nb_grid_pts, year_steps, h, x_max, x0, y0, n_sub, device)
-    return cube, cube.mask
+                                nb_grid_pts, year_steps, h, x_max, x0, y0, n_sub,
+                                _cube_device(device, mesh))
+    return _on_mesh(cube, mesh), cube.mask
 
 
 # ----------------------------------------------------------------------------

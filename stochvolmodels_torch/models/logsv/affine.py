@@ -125,6 +125,8 @@ def _dense(entries: dict, n: int, ndim: int, like: torch.Tensor) -> torch.Tensor
 
 
 def func_a_ode_quadratic_terms(theta, kappa1, kappa2, beta, volvol,
+                               phi=None,
+                               psi=None,
                                is_spot_measure: bool = True,
                                expansion_order: ExpansionOrder = ExpansionOrder.SECOND,
                                vol_backbone_eta=1.0):
@@ -138,7 +140,16 @@ def func_a_ode_quadratic_terms(theta, kappa1, kappa2, beta, volvol,
     L0 and L1 (n, n), h (n,).  If any parameter is a tensor (0-dim float64,
     as calibration passes them), returns float64 tensors on its device that
     carry gradients and tangents, with the same bits as the float build.
+    With ``phi`` (and ``psi``, default 0) given, the reference's per-point
+    form, returns the combined complex (M, L(phi), H(phi, psi)) instead.
     """
+    if phi is not None:
+        M, L0, L1, h = func_a_ode_quadratic_terms(
+            theta, kappa1, kappa2, beta, volvol, is_spot_measure=is_spot_measure,
+            expansion_order=expansion_order, vol_backbone_eta=vol_backbone_eta)
+        phi, psi = complex(phi), complex(0.0 if psi is None else psi)
+        p = 1.0 if is_spot_measure else -1.0
+        return M, L0 + phi * L1, h * (phi * (phi + p) - 2.0 * psi)
     n = get_expansion_n(expansion_order)
     entries = _quadratic_term_entries(theta, kappa1, kappa2, beta, volvol, is_spot_measure,
                                       expansion_order, vol_backbone_eta)
@@ -199,6 +210,7 @@ def solve_a_ode_grid(phi_grid: torch.Tensor,
                      vol_backbone_eta: float = 1.0,
                      nb_steps: Optional[int] = None,
                      year_steps: int = 720,
+                     unroll: int = 4,
                      warmup_scale: Optional[float] = None
                      ) -> torch.Tensor:
     """advance A over [0, ttm] for the whole grid by fixed-step RK4.
@@ -218,8 +230,10 @@ def solve_a_ode_grid(phi_grid: torch.Tensor,
 
     The parameters are Python floats or 0-dim float64 tensors on the grid's
     device (calibration differentiates through them); ``ttm`` and so the step
-    schedule are host numbers.
+    schedule are host numbers.  ``unroll`` (the JAX scan's unroll factor) is
+    accepted for the signature and unused.
     """
+    del unroll
     n = get_expansion_n(expansion_order)
     if is_stiff_solver:
         year_steps = 4 * year_steps

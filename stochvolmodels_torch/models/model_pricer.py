@@ -150,3 +150,32 @@ class ModelPricer(ABC):
     def compute_logreturn_pdf(self, params: ModelParams, **kwargs) -> np.ndarray:
         """analytic log-return density."""
         raise NotImplementedError("must be implemented in parent class")
+
+    # ------------------------------------------------------------------
+    # visualization (stochvolmodels_torch.plotting; needs matplotlib,
+    # seaborn and pandas, imported there at the call)
+    # ------------------------------------------------------------------
+    def plot_model_ivols(self, option_chain: OptionChain, params: ModelParams, **kwargs):
+        from stochvolmodels_torch.plotting import pricer_plots
+        return pricer_plots.plot_model_ivols(self, option_chain, params, **kwargs)
+
+    def plot_model_ivols_vs_bid_ask(self, option_chain: OptionChain,
+                                    params: ModelParams, **kwargs):
+        from stochvolmodels_torch.plotting import pricer_plots
+        return pricer_plots.plot_model_ivols_vs_bid_ask(self, option_chain, params, **kwargs)
+
+    def plot_model_ivols_vs_mc(self, option_chain: OptionChain,
+                               params: ModelParams, **kwargs):
+        from stochvolmodels_torch.plotting import pricer_plots
+        return pricer_plots.plot_model_ivols_vs_mc(self, option_chain, params, **kwargs)
+
+    def plot_comp_mma_inverse_options_with_mc(self, option_chain: OptionChain,
+                                              params: ModelParams, **kwargs):
+        from stochvolmodels_torch.plotting import pricer_plots
+        return pricer_plots.plot_comp_mma_inverse_options_with_mc(
+            self, option_chain, params, **kwargs)
+
+    def plot_model_slices_in_params(self, option_slice, params_dict, **kwargs):
+        from stochvolmodels_torch.plotting import pricer_plots
+        return pricer_plots.plot_model_slices_in_params(
+            self, option_slice, params_dict, **kwargs)

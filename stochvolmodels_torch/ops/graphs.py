@@ -46,6 +46,9 @@ CAPTURES: collections.Counter = collections.Counter()
 
 _capture_enabled = True
 _graphs: "collections.OrderedDict[Hashable, _Captured]" = collections.OrderedDict()
+# one capture stream a device: torch.cuda.graph's default stream is made once, on the device
+# current at the first capture, and a graph of another device cannot be captured on it
+_capture_streams: "dict[torch.device, torch.cuda.Stream]" = {}
 
 
 @contextlib.contextmanager
@@ -74,20 +77,24 @@ class _Captured:
 
     def __init__(self, fn: Callable[..., Tuple[torch.Tensor, ...]],
                  inputs: Sequence[torch.Tensor]):
+        device = inputs[0].device
         self.static_inputs = [torch.empty(x.shape, dtype=x.dtype, device=x.device)
                               for x in inputs]
         for s, x in zip(self.static_inputs, inputs):
             s.copy_(x)
-        # warm up on a side stream: first-use allocations, lazy cuBLAS set-up
-        # and cached constants happen outside the captured region
-        side = torch.cuda.Stream(device=self.static_inputs[0].device)
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn(*self.static_inputs)
-        torch.cuda.current_stream().wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.static_outputs = fn(*self.static_inputs)
+        with torch.cuda.device(device):
+            # warm up on a side stream: first-use allocations, lazy cuBLAS
+            # set-up and cached constants happen outside the captured region
+            side = torch.cuda.Stream(device=device)
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn(*self.static_inputs)
+            torch.cuda.current_stream().wait_stream(side)
+            if device not in _capture_streams:
+                _capture_streams[device] = torch.cuda.Stream(device=device)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=_capture_streams[device]):
+                self.static_outputs = fn(*self.static_inputs)
 
     def __call__(self, inputs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
         for s, x in zip(self.static_inputs, inputs):

@@ -49,26 +49,36 @@ def lm_init(residuals_fn: Callable[[torch.Tensor], torch.Tensor], p0: torch.Tens
     return p0, lam, p0, torch.sum(torch.square(residuals_fn(p0)))
 
 
-def lm_step(residuals_fn: Callable[[torch.Tensor], torch.Tensor], state: LMState,
-            lower: torch.Tensor, upper: torch.Tensor) -> LMState:
-    """one damped Gauss-Newton iteration from ``state`` over the box [lower,
-    upper]; returns the next state.  The residuals and their Jacobian come
-    from one forward-mode pass (``jacfwd`` with the residuals as its aux), so
-    an iteration costs that pass and one more residual evaluation at the
-    candidate.  A candidate whose cost is NaN is rejected: ``NaN < cost`` is
-    false."""
-    pars, lam, best_pars, best_cost = state
+def residuals_and_jacobian(residuals_fn: Callable[[torch.Tensor], torch.Tensor],
+                           pars: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(J, r): the residuals at ``pars`` and their Jacobian, from one
+    forward-mode pass (``jacfwd`` with the residuals as its aux)."""
+    return jacfwd(lambda p: (lambda res: (res, res))(residuals_fn(p)), has_aux=True)(pars)
+
+
+def lm_propose(state: LMState, J: torch.Tensor, r: torch.Tensor, lower: torch.Tensor,
+               upper: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cost at ``state``'s pars, the projected candidate) of one damped
+    Gauss-Newton iteration, from the residuals ``r`` and their Jacobian
+    ``J`` at the state's pars."""
+    pars, lam = state[0], state[1]
     n = pars.shape[0]
     eye = torch.eye(n, dtype=pars.dtype, device=pars.device)
-    J, r = jacfwd(lambda p: (lambda res: (res, res))(residuals_fn(p)), has_aux=True)(pars)
     cost = torch.sum(r * r)
     g = J.T @ r
     JTJ = J.T @ J
     # scale-invariant damping (Marquardt): lambda * diag(JTJ)
     D = torch.diag(torch.clamp(torch.diagonal(JTJ), min=1e-10))
     step = cg_solve(JTJ + lam * D + 1e-12 * eye, -g, iters=n + 3)
-    cand = torch.clamp(pars + step, lower, upper)
-    new_cost = torch.sum(torch.square(residuals_fn(cand)))
+    return cost, torch.clamp(pars + step, lower, upper)
+
+
+def lm_accept(state: LMState, cost: torch.Tensor, cand: torch.Tensor,
+              new_cost: torch.Tensor) -> LMState:
+    """the next state once the candidate's cost ``new_cost`` is known: the
+    candidate is taken where it lowers ``cost`` (a NaN cost is rejected:
+    ``NaN < cost`` is false), and the damping moves accordingly."""
+    pars, lam, best_pars, best_cost = state
     accept = new_cost < cost
     pars = torch.where(accept, cand, pars)
     lam = torch.where(accept, torch.clamp(lam / 3.0, min=1e-8), torch.clamp(lam * 4.0, max=1e6))
@@ -76,6 +86,17 @@ def lm_step(residuals_fn: Callable[[torch.Tensor], torch.Tensor], state: LMState
     best_pars = torch.where(better, cand, best_pars)
     best_cost = torch.where(better, new_cost, best_cost)
     return pars, lam, best_pars, best_cost
+
+
+def lm_step(residuals_fn: Callable[[torch.Tensor], torch.Tensor], state: LMState,
+            lower: torch.Tensor, upper: torch.Tensor) -> LMState:
+    """one damped Gauss-Newton iteration from ``state`` over the box [lower,
+    upper]; returns the next state.  An iteration costs one forward-mode
+    pass (:func:`residuals_and_jacobian`) and one more residual evaluation at
+    the candidate (:func:`lm_propose`, then :func:`lm_accept`)."""
+    J, r = residuals_and_jacobian(residuals_fn, state[0])
+    cost, cand = lm_propose(state, J, r, lower, upper)
+    return lm_accept(state, cost, cand, torch.sum(torch.square(residuals_fn(cand))))
 
 
 def lm_minimize(residuals_fn: Callable[[torch.Tensor], torch.Tensor],

@@ -28,8 +28,8 @@ THETA_SPAN = 600.0
 
 
 def get_phi_grid(is_spot_measure: bool = True, max_phi: int = PHI_POINTS,
-                 vol_scaler: float = 0.28, device="cuda",
-                 real_phi: Optional[float] = None) -> torch.Tensor:
+                 vol_scaler: float = 0.28, real_phi: Optional[float] = None,
+                 device="cuda") -> torch.Tensor:
     """log-price transform grid phi = real_p + i p, p in [0, 5.6/vol_scaler].
 
     The real part is ``real_phi`` when given, else -0.5 under the spot
@@ -83,8 +83,8 @@ def get_theta_grid(max_theta: int = THETA_POINTS, device="cuda") -> torch.Tensor
 
 def get_transform_var_grid(variable_type: VariableType = VariableType.LOG_RETURN,
                            is_spot_measure: bool = True, max_phi: int = PHI_POINTS,
-                           vol_scaler: float = 0.28, device="cuda",
-                           real_phi: Optional[float] = None
+                           vol_scaler: float = 0.28, real_phi: Optional[float] = None,
+                           device="cuda"
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(phi, psi, theta) grids with the inactive ones zeroed: LOG_RETURN runs
     on the phi grid; Q_VAR on the psi grid with phi held at 0 (spot measure)

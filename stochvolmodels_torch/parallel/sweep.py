@@ -1,6 +1,6 @@
 """
 Calibration sweeps: the Levenberg-Marquardt fits of many option chains at
-once, on one GPU.
+once, over a device mesh.
 
 PyTorch counterpart of ``stochvolmodels_tpu/parallel/sweep.py``.  The chains
 are independent, so the sweep is one program: the single-chain LM run of
@@ -8,11 +8,16 @@ LogSV (``models/logsv/fast_calibration._lm_run``) or of Heston
 (``models/heston._heston_lm_run``), batched over a stacked chain axis with
 ``torch.func.vmap``, in chunks of at most ``SWEEP_CHUNK`` chains.  On a CUDA
 device the whole batched fit of a chunk is one CUDA graph per (chunk size,
-panel shape, maturities, ``nb_iters``, solver configuration), captured at
-its first call; inside ``graphs.eager()`` it runs eagerly, with the same
-bits.  The JAX package shards the batch over a
-device mesh; the port runs on one GPU, so ``mesh`` is kept for signature
-parity and must be None, and nothing is padded.
+panel shape, maturities, ``nb_iters``, solver configuration, device),
+captured at its first call; inside ``graphs.eager()`` it runs eagerly, with
+the same bits.
+
+The batch axis is split over ``mesh`` (``parallel/mesh.py``; by default every
+CUDA device, or the one device the caller names): the batch is padded to a
+multiple of the mesh size by repeating the last chain (the padding is
+dropped on return), each device fits its contiguous part through its own
+graphs, every device is launched before any result is read back, and the
+fits are gathered on the first device.
 
 All chains in a sweep share the maturity and strike layout (the same ttms
 and padded panel shape), the natural shape of a calibration time series of
@@ -43,6 +48,13 @@ from stochvolmodels_torch.models.logsv.fast_calibration import (
 from stochvolmodels_torch.models.logsv.params import LogSvParams
 from stochvolmodels_torch.models.logsv.pricer import ConstraintsType
 from stochvolmodels_torch.ops import graphs
+from stochvolmodels_torch.parallel.mesh import (
+    PathMesh,
+    check_mesh,
+    gather,
+    make_path_mesh,
+    on_device,
+)
 
 HESTON_LOWER = np.array([b[0] for b in HESTON_BOUNDS])
 HESTON_UPPER = np.array([b[1] for b in HESTON_BOUNDS])
@@ -55,10 +67,18 @@ HESTON_UPPER = np.array([b[1] for b in HESTON_BOUNDS])
 SWEEP_CHUNK = 512
 
 
-def _check_sweep(option_chains, params0, params_type, mesh):
-    """(the chains, one start point a chain, the shared maturities)."""
+def _sweep_mesh(mesh: Optional[PathMesh], device) -> PathMesh:
+    """``mesh``, or by default every CUDA device for ``device="cuda"`` and
+    the one device named otherwise (``"cpu"``, ``"cuda:1"``)."""
     if mesh is not None:
-        raise NotImplementedError("the port's sweep runs on one GPU: pass mesh=None")
+        return check_mesh(mesh)
+    device = torch.device(device)
+    return make_path_mesh() if device.type == "cuda" and device.index is None \
+        else make_path_mesh([device])
+
+
+def _check_sweep(option_chains, params0, params_type):
+    """(the chains, one start point a chain, the shared maturities)."""
     chains = list(option_chains)
     ttms0 = tuple(float(t) for t in chains[0].ttms) if chains else ()
     for c in chains[1:]:
@@ -72,17 +92,11 @@ def _check_sweep(option_chains, params0, params_type, mesh):
     return chains, list(params0), ttms0
 
 
-def _run_batched(name: str, run, batched: Sequence[torch.Tensor], lower: torch.Tensor,
-                 upper: torch.Tensor, key) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``run(p0, ttms, forwards, discfactors, strikes, optioncodes, mask,
-    market, sqrtw, lower, upper, vol_scaler)`` vmapped over the leading axis
-    of ``batched`` (all but the bounds), in chunks of at most SWEEP_CHUNK
-    chains, through one captured graph per chunk size and ``key`` on the
-    card."""
-    vmapped = torch.func.vmap(
-        lambda p0, ttms, fwd, disc, strikes, codes, mask, market, sqrtw, vs, lo, hi:
-        run(p0, ttms, fwd, disc, strikes, codes, mask, market, sqrtw, lo, hi, vs),
-        in_dims=(0,) * len(batched) + (None, None))
+def _run_chunks(name: str, vmapped, batched: Sequence[torch.Tensor], lower: torch.Tensor,
+                upper: torch.Tensor, key) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``vmapped`` over the rows of ``batched`` (on one device), in chunks of
+    at most SWEEP_CHUNK chains, the last padded with copies of its last
+    chain; one captured graph per chunk size and ``key`` on a card."""
     n = batched[0].shape[0]
     size = min(n, SWEEP_CHUNK)
     best, cost = [], []
@@ -100,6 +114,33 @@ def _run_batched(name: str, run, batched: Sequence[torch.Tensor], lower: torch.T
         best.append(out[0])
         cost.append(out[1])
     return torch.cat(best)[:n], torch.cat(cost)[:n]
+
+
+def _run_batched(name: str, run, batched: Sequence[torch.Tensor], lower: torch.Tensor,
+                 upper: torch.Tensor, key, mesh: PathMesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``run(p0, ttms, forwards, discfactors, strikes, optioncodes, mask,
+    market, sqrtw, lower, upper, vol_scaler)`` vmapped over the leading axis
+    of ``batched`` (all but the bounds): the batch padded to a multiple of
+    the mesh size with copies of its last chain, each device's contiguous
+    part run by :func:`_run_chunks` on that device, all launched before the
+    results are gathered on the first device."""
+    vmapped = torch.func.vmap(
+        lambda p0, ttms, fwd, disc, strikes, codes, mask, market, sqrtw, vs, lo, hi:
+        run(p0, ttms, fwd, disc, strikes, codes, mask, market, sqrtw, lo, hi, vs),
+        in_dims=(0,) * len(batched) + (None, None))
+    n = batched[0].shape[0]
+    pad = (-n) % mesh.size
+    if pad:
+        batched = [torch.cat([x, x[-1:].expand(pad, *x.shape[1:])]) for x in batched]
+    per = (n + pad) // mesh.size
+    outs = []
+    for i, dev in enumerate(mesh.devices):
+        with on_device(dev):
+            outs.append(_run_chunks(name, vmapped, [x[i * per:(i + 1) * per].to(dev)
+                                                    for x in batched],
+                                    lower.to(dev), upper.to(dev), key))
+    first = mesh.devices[0]
+    return (gather([b for b, _ in outs], first)[:n], gather([c for _, c in outs], first)[:n])
 
 
 def _stack_grids(grids, markets, sqrtws):
@@ -130,13 +171,17 @@ def calibrate_logsv_lm_sweep(option_chains: Sequence[OptionChain],
     The single-chain LM run is vmapped over the chain axis, in chunks of at
     most SWEEP_CHUNK (512) chains; on a CUDA device the whole fit of a chunk
     is one CUDA graph per (chunk size, panel shape, ttms, ``nb_iters``,
-    ``year_steps``, constraints type), captured at its first call.  ``mesh`` must be None (one GPU); ``use_float32`` is accepted for
-    signature parity and mapped to float64.
+    ``year_steps``, constraints type, device), captured at its first call.
+    The batch splits over ``mesh`` (default: every CUDA device for
+    ``device="cuda"``, else the one device named); ``use_float32`` is
+    accepted for signature parity and mapped to float64.
     """
     del use_float32
-    chains, params0, ttms0 = _check_sweep(option_chains, params0, LogSvParams, mesh)
+    chains, params0, ttms0 = _check_sweep(option_chains, params0, LogSvParams)
     if not chains:
         return []
+    mesh = _sweep_mesh(mesh, device)
+    device = mesh.devices[0]
     f64 = dict(dtype=torch.float64, device=device)
     grids, markets, sqrtws, p0s, scalers = [], [], [], [], []
     for chain, par0 in zip(chains, params0):
@@ -155,7 +200,8 @@ def calibrate_logsv_lm_sweep(option_chains: Sequence[OptionChain],
            constraints_type)
     best, cost = _run_batched("logsv_lm_sweep", lambda *a: _lm_run(*a, **static), batched,
                               torch.as_tensor(_bounds_vector(params_min, LOWER), **f64),
-                              torch.as_tensor(_bounds_vector(params_max, UPPER), **f64), key)
+                              torch.as_tensor(_bounds_vector(params_max, UPPER), **f64), key,
+                              mesh)
     return [(_fit_params(b), float(c)) for b, c in zip(best.cpu(), cost.cpu().numpy())]
 
 
@@ -181,11 +227,14 @@ def calibrate_heston_lm_sweep(option_chains: Sequence[OptionChain],
     (v0, theta, kappa, rho, volvol) LM fit in one batched program, each
     what ``calibrate_heston_lm`` gives for its chain alone; the transform
     grid of each chain frozen at min(0.3, sqrt(v0 ttm0)) of its start point.
-    ``params0`` is one HestonParams or a list; ``mesh`` must be None."""
+    ``params0`` is one HestonParams or a list; the batch splits over
+    ``mesh`` as in :func:`calibrate_logsv_lm_sweep`."""
     del use_float32
-    chains, params0, ttms0 = _check_sweep(option_chains, params0, HestonParams, mesh)
+    chains, params0, ttms0 = _check_sweep(option_chains, params0, HestonParams)
     if not chains:
         return []
+    mesh = _sweep_mesh(mesh, device)
+    device = mesh.devices[0]
     f64 = dict(dtype=torch.float64, device=device)
     grids, markets, sqrtws, p0s, scalers = [], [], [], [], []
     for chain, par0 in zip(chains, params0):
@@ -204,7 +253,7 @@ def calibrate_heston_lm_sweep(option_chains: Sequence[OptionChain],
     key = (tuple(grids[0].strikes.shape), ttms0, static["nb_iters"])
     best, cost = _run_batched("heston_lm_sweep", lambda *a: _heston_lm_run(*a, **static),
                               batched, torch.as_tensor(HESTON_LOWER, **f64),
-                              torch.as_tensor(HESTON_UPPER, **f64), key)
+                              torch.as_tensor(HESTON_UPPER, **f64), key, mesh)
     out = []
     for b, c in zip(best.cpu().numpy().astype(np.float64), cost.cpu().numpy()):
         v0, theta, kappa, rho, volvol = b

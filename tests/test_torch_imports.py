@@ -109,6 +109,17 @@ remapped = svt.SwOptionChain.remap_to_inc_delta(SeriesLike(values=k, index=np.ar
 assert torch.isfinite(cube(1.0, rates.beta.xs, rates.volvol.xs)).all() and mask.all()
 assert np.all(panels["vega"] > 0.0) and np.all(np.isfinite(swaptions.get_chain_vegas()[0][0]))
 assert all(np.all((iv[0] > 0.001) & (iv[0] < 0.05)) for iv in de_ivols), de_ivols
+import stochvolmodels_torch.compat as compat
+import stochvolmodels_torch.plotting.plots
+import stochvolmodels_torch.plotting.pricer_plots
+from stochvolmodels_torch.parallel.mesh import make_path_mesh, simulate_logsv_terminal_kernel_sharded
+from stochvolmodels_torch.utils.profiling import annotate, wall_and_device_time
+with wall_and_device_time() as wall, annotate("sharded_mc"):
+    sharded = simulate_logsv_terminal_kernel_sharded(
+        make_path_mesh(["cpu", "cpu"]), seed=1, nb_path=256, ttm=0.05, sigma0=0.8, theta=1.0,
+        kappa1=2.0, kappa2=2.0, beta=0.2, volvol=1.5)
+assert all(torch.isfinite(t).all() and t.shape == (256,) for t in sharded) and wall["wall_s"] > 0
+assert compat.LogSVPricer is svt.LogSVPricer and "stochvolmodels" not in sys.modules
 loaded = sorted(m for m, mod in sys.modules.items() if m.split(".")[0] in BLOCKED and mod is not None)
 assert not loaded, loaded
 print("ok", len(prices))
@@ -122,8 +133,10 @@ def test_port_imports_and_prices_without_jax_pandas_matplotlib_triton():
     backbone fit, a Bachelier price and implied vol, a Student-t price, the
     GMM and Student-t chain prices and one Heston LM sweep iteration, and
     the factor-HJM swaption cube, its vega, the adaptive tanh-sinh pricer on
-    one expiry and the swaption chain's vegas and delta remap, in a process
-    that cannot import jax, pandas, matplotlib or triton."""
+    one expiry and the swaption chain's vegas and delta remap, and the
+    mesh, profiling, plotting and compat modules (a path-sharded MC on a
+    two-device CPU mesh inside a named region), in a process that cannot
+    import jax, pandas, matplotlib or triton."""
     out = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, capture_output=True,
                          text=True, timeout=300, env=dict(os.environ, PYTHONPATH=str(REPO)))
     assert out.returncode == 0, out.stderr

@@ -11,9 +11,10 @@ the JAX package (``engine='f64'``), on the CPU in float64.
 * the divergence freeze under ``torch.func.jvp``: the tangent of A on every
   dead node is exactly 0, and finite on the live ones;
 * the entry points kept for the signature: ``engine`` takes 'auto', 'f64'
-  and 'df32' (all float64), anything else raises; ``mesh`` other than None
-  and ``RateLogSVPricer.model_mc_price_chain`` (as in the JAX package)
-  raise ``NotImplementedError``.
+  and 'df32' (all float64), anything else raises; a ``mesh`` that is not
+  a ``PathMesh`` raises ``TypeError`` (a mesh splits the slices:
+  tests/test_torch_mesh_cube.py); ``RateLogSVPricer.model_mc_price_chain``
+  (as in the JAX package) raises ``NotImplementedError``.
 """
 import jax
 import jax.numpy as jnp
@@ -149,7 +150,7 @@ def test_unknown_engine_and_a_mesh_raise():
     with pytest.raises(ValueError):
         trp.make_swaption_cube_fn(pt, SLICES[:1], FWDS[:1], STRIKES[:1], engine="f32",
                                   device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         trp.make_swaption_cube_fn(pt, SLICES[:1], FWDS[:1], STRIKES[:1], mesh=object(),
                                   device="cpu")
 

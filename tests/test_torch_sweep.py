@@ -14,7 +14,8 @@ On two perturbed BTC chains (bid and ask ivols scaled by 0.95 and 1.05, as
   tests/test_torch_sweep_jax.py);
 * a sweep longer than ``SWEEP_CHUNK`` runs in padded chunks, each chain's
   fit that of the unchunked sweep to 1e-10;
-* ``mesh`` other than None raises; chains of other maturities raise;
+* a ``mesh`` that is not a ``PathMesh`` raises (a mesh splits the batch:
+  tests/test_torch_mesh_sweep.py); chains of other maturities raise;
   ``pad_chains_to_sweep`` buckets as the JAX package's does;
 * on a card (skipped here): the captured sweep equals its eager call bit
   for bit.
@@ -98,10 +99,10 @@ def test_a_sweep_longer_than_a_chunk_runs_in_padded_chunks(monkeypatch):
 
 def test_a_mesh_raises_and_mixed_maturities_raise():
     chains = perturbed(svt)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         tsweep.calibrate_logsv_lm_sweep(chains, svt.LogSvParams(**LOGSV_P0), mesh=object(),
                                         device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         tsweep.calibrate_heston_lm_sweep(chains, svt.HestonParams(**HESTON_P0), mesh=object(),
                                          device="cpu")
     short = svt.OptionChain.get_slices_as_chain(chains[0], ids=list(chains[0].ids[:2]))
