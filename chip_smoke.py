@@ -9,7 +9,8 @@ sm_90a, an H100) and the CUDA toolkit:
 It builds the hand-written Monte-Carlo kernels from ``csrc/`` (LogSV, Heston,
 rough LogSV, Hawkes JD and the LogSV variant study, one nvcc each, started
 together), holds each against its plain PyTorch version on the card (each of
-the 14 variants of the study), drives the port's serving paths on the
+the 14 variants of the study, at 1e-4 max(|plain|, 1), and the study's
+poly-bm against logsv_mc at 1e-5), drives the port's serving paths on the
 bundled BTC chain (LogSV analytic prices and implied vols, then MC through
 its kernel; Heston analytic prices, implied vols and MC through its kernel;
 the rough LogSV MC through its kernel; Hawkes JD analytic prices, implied
@@ -22,8 +23,9 @@ issue floor those give.  The Hawkes kernel must equal its plain version bit
 for bit; the LogSV, Heston and rough kernels, whose updates use FMA, are
 held to 1e-4 in x and a stated tolerance in the other outputs (LogSV under
 both measures).  The
-four run once more at a path count that leaves their last block half empty,
-bit for bit the first paths of the full run.  Each
+four, and the study's poly-bm and one-prng, run once more at a path count
+that leaves their last block half empty, bit for bit the first paths of the
+full run.  Each
 path runs with every launch count set to 0 just before it and read just
 after.  Then the LogSV calibration on the BTC chain from ``bench.py``'s
 start point: 12 Levenberg-Marquardt iterations through the pricer
@@ -309,7 +311,7 @@ def _event_ms(fn, repeats: int) -> float:
 def _ptxas(log: str) -> str:
     """registers and spills of each kernel entry in an nvcc -Xptxas -v log;
     template instances are named by their arguments (the rough kernel's
-    factor count; the variant study's variant and unroll), and more than six
+    factor count; the variant study's variant), and more than six
     are summed up."""
     parts, entry = [], None
     for line in log.splitlines():
@@ -2386,6 +2388,58 @@ def _join_side_phases(process, receiver) -> dict:
     return payload
 
 
+def _scaled_gap(label: str, out: torch.Tensor, ref: torch.Tensor, limit: float) -> float:
+    """max |out - ref| / max(|ref|, 1) of two float32 outputs, printed and held
+    to ``limit``, with the kernel's output finite; returns the max abs gap."""
+    torch.cuda.synchronize()
+    _check(bool(torch.isfinite(out).all()), f"{label} output not finite")
+    diff = (out - ref).abs()
+    max_abs = float(diff.max())
+    scaled = float((diff / ref.abs().clamp(min=1.0)).max())
+    print(f"[kernel-vs-plain] {label}: max abs error {max_abs:.3e}, max error / max(|ref|, 1) "
+          f"{scaled:.3e} (limit {limit:g})", flush=True)
+    _check(scaled <= limit, f"{label} exceeds its limit")
+    return max_abs
+
+
+def _variants_vs_plain(cuda_mc, mc_variants, x0: torch.Tensor) -> float:
+    """each variant of the study against its plain version at NB_PATH x
+    VARIANT_CHECK_STEPS (1e-4 max(|plain|, 1): the kernel's multiply-adds and
+    approximate 1/sigma); poly-bm against logsv_mc at the study's parameters
+    (eta 1, spot measure), path by path, within 1e-5 max(|out|, 1), the
+    limit tests/test_torch_mc_variants.py holds the two plain versions to;
+    poly-bm and one-prng (the two key rings) at ODD_NB_PATH, a half-empty
+    last block, bit for bit the first paths of the full run.  Returns the
+    largest gap to a plain version."""
+    err, full = 0.0, {}
+    for variant in mc_variants.VARIANTS:
+        full[variant] = mc_variants.run_variant_cuda(7, x0, VARIANT_CHECK_STEPS, VARIANT_DT,
+                                                     variant)
+        plain_out = mc_variants.run_variant_torch(7, x0, VARIANT_CHECK_STEPS, VARIANT_DT, variant)
+        err = max(err, _scaled_gap(f"logsv_variants {variant} {NB_PATH} paths x "
+                                   f"{VARIANT_CHECK_STEPS} steps", full[variant], plain_out, 1e-4))
+    from stochvolmodels_torch.utils.funcs import set_time_grid
+    study = dict(theta=1.04, kappa1=3.18, kappa2=3.06, beta=0.15, volvol=1.85)
+    # 91 steps at 359 a year over 91/360: dt rounds to the study's float32 1/360
+    ttm = VARIANT_CHECK_STEPS / 360.0
+    nb_steps, dt, _ = set_time_grid(ttm, 359)
+    _check(nb_steps == VARIANT_CHECK_STEPS and np.float32(dt) == np.float32(VARIANT_DT),
+           "the production grid no longer gives the study's steps")
+    x, sigma, qvar = cuda_mc.simulate_logsv_terminal_cuda(
+        7, x0, torch.full_like(x0, float(mc_variants.SIGMA0)), torch.zeros_like(x0), ttm=ttm,
+        nb_steps_per_year=359, **study)
+    _scaled_gap(f"logsv_variants poly-bm against logsv_mc {NB_PATH} paths x "
+                f"{VARIANT_CHECK_STEPS} steps", full["poly-bm"], x + sigma + qvar, 1e-5)
+    for variant in ("poly-bm", "one-prng"):
+        odd = mc_variants.run_variant_cuda(7, x0[:ODD_NB_PATH], VARIANT_CHECK_STEPS, VARIANT_DT,
+                                           variant)
+        _check(torch.equal(odd, full[variant][:ODD_NB_PATH]),
+               f"logsv_variants {variant} at {ODD_NB_PATH} paths differs from the full run")
+        print(f"[half-block] logsv_variants {variant} {ODD_NB_PATH} paths: equal bit for bit to "
+              f"the first {ODD_NB_PATH} paths of the {NB_PATH}-path run", flush=True)
+    return err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a GPU",
@@ -2497,21 +2551,7 @@ def main() -> int:
                f"{name} at {ODD_NB_PATH} paths differs from the first paths of the full run")
         print(f"[half-block] {name} {ODD_NB_PATH} paths: equal bit for bit to the first "
               f"{ODD_NB_PATH} paths of the {NB_PATH}-path run", flush=True)
-    err["logsv_variants"] = 0.0
-    for variant in mc_variants.VARIANTS:
-        kernel_out = mc_variants.run_variant_cuda(7, x0, VARIANT_CHECK_STEPS, VARIANT_DT, variant)
-        plain_out = mc_variants.run_variant_torch(7, x0, VARIANT_CHECK_STEPS, VARIANT_DT, variant)
-        torch.cuda.synchronize()
-        _check(bool(torch.isfinite(kernel_out).all()),
-               f"logsv_variants {variant} output not finite")
-        diff = (kernel_out - plain_out).abs()
-        max_abs = float(diff.max())
-        scaled = float((diff / plain_out.abs().clamp(min=1.0)).max())
-        print(f"[kernel-vs-plain] logsv_variants {variant} {NB_PATH} paths x "
-              f"{VARIANT_CHECK_STEPS} steps: max abs error {max_abs:.3e}, max error / "
-              f"max(|plain|, 1) {scaled:.3e} (limit 1e-4)", flush=True)
-        _check(scaled <= 1e-4, f"logsv_variants {variant} disagrees with its plain version")
-        err["logsv_variants"] = max(err["logsv_variants"], max_abs)
+    err["logsv_variants"] = _variants_vs_plain(cuda_mc, mc_variants, x0)
     chain = svt.get_btc_test_chain_data()
     launches = {}
 
@@ -2675,19 +2715,24 @@ def main() -> int:
     launches["logsv_variants"] = _counts(cuda_mc, mc_variants)["logsv_variants"]
     _check(launches["logsv_variants"] == len(mc_variants.VARIANTS),
            f"the variant study launched {launches['logsv_variants']} kernels")
+    variant_ms = {}
     for variant in mc_variants.VARIANTS:
         def run(variant=variant):
             return mc_variants.run_variant_cuda(1, zeros, VARIANT_STEPS, VARIANT_DT, variant)
 
         run()
-        ms = min(_event_ms(run, 1) for _ in range(5))
+        variant_ms[variant] = min(_event_ms(run, 1) for _ in range(5))
+    for variant, ms in variant_ms.items():
         bound, _ = _bound_ms("logsv_variants", mc_variants.OPS_PER_STEP[variant], NB_PATH,
                              VARIANT_STEPS)
         mean, bad = sanity[variant]
+        # no-exp's kernel also divides exactly where the others take rcp.approx
+        piece = "; no exp + IEEE 1/sigma" if variant == "no-exp" else ""
         print(f"[variants] {variant:18s} {NB_PATH} paths x {VARIANT_STEPS} steps, 1 launch per "
               f"call: best of 5 {ms:.4f} ms ({NB_PATH * VARIANT_STEPS / ms * 1e3:.4e} "
-              f"path-steps/s), bound {bound:.4f} ms ({bound / ms:.1%}); sanity mean "
-              f"(x+sig+qvar) {mean:.4f}, {bad} non-finite paths", flush=True)
+              f"path-steps/s; {ms - variant_ms['poly-bm']:+.4f} ms against poly-bm{piece}), bound "
+              f"{bound:.4f} ms ({bound / ms:.1%}); sanity mean (x+sig+qvar) {mean:.4f}, {bad} "
+              f"non-finite paths", flush=True)
         # no-exp's sigma = |1 + ln sigma| is not the model's and may leave the floats
         _check(bad == 0 or variant == "no-exp", f"variant {variant}: {bad} non-finite paths")
 
@@ -2736,12 +2781,11 @@ def main() -> int:
     # the issue floor: SASS instructions on the step loop's common path x
     # warp-steps / (SMs x 4 warp-instructions a clock x the SM clock measured under load)
     sass = _load_script("scripts/sass_step_loops.py")
-    # the instances timed above: rough_mc at ROUGH_NODES, poly-bm at run_variant_cuda's unroll 2
+    # the instances timed above: rough_mc at ROUGH_NODES, the study's poly-bm
     instance = {name: "" for name in KERNELS}
     instance["rough_mc"] = str(ROUGH_NODES)
-    instance["logsv_variants"] = f"{mc_variants.VARIANTS.index('poly-bm')},2"
+    instance["logsv_variants"] = str(mc_variants.VARIANTS.index("poly-bm"))
     steps_per_loop = {name: sass.steps_per_pass(name) for name in KERNELS}
-    steps_per_loop["logsv_variants"] = 2
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name in KERNELS:
         total, common, _ = sass.loop_lengths(sass.disassemble(_build._lib_path(name)))[instance[name]]

@@ -32,8 +32,7 @@ CSRC = Path(__file__).resolve().parents[1] / "stochvolmodels_torch" / "csrc"
 
 def steps_per_pass(kernel: str, csrc: Path = CSRC) -> int:
     """model steps in one pass of a kernel's step loop: the ``kStepsPerPass``
-    that ``<csrc>/<kernel>.cu`` unrolls its loop by, 1 where it has none (the
-    variant study unrolls by its template argument instead)."""
+    that ``<csrc>/<kernel>.cu`` unrolls its loop by, 1 where it has none."""
     m = re.search(r"constexpr int kStepsPerPass = (\d+);", (csrc / f"{kernel}.cu").read_text())
     return int(m.group(1)) if m else 1
 

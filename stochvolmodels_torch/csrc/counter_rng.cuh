@@ -10,9 +10,8 @@
 // `seed + (p >> 15)` at in-block index `p & 32767` (one (256 x 128)-path
 // block per TPU program), whatever the CUDA launch geometry.  Step `step`
 // draws from streams 0 and 1 (the normals), and the Hawkes kernel also from
-// streams 2-5, with the step index as its salt; the variant study takes the
-// raw bits of streams 0 and 1 (`stream_bits`).  The rough and Hawkes kernels
-// draw the same bits through per-block keys (`stream_key`, `bits_from_key`).
+// streams 2-5, with the step index as its salt.  Every kernel draws these
+// bits through per-block keys (`stream_key`, `bits_from_key`, `KeyRing`).
 #pragma once
 
 #include <cstdint>
@@ -54,50 +53,12 @@ __device__ __forceinline__ float poly_cospi(float u) {
   return -s;
 }
 
-// the random stream of one path
-struct PathCounter {
-  uint32_t idx;        // in-block path index, p & 32767
-  uint32_t seed_term;  // (seed + (p >> 15)) * 0x9E3779B9
-};
-
-__device__ __forceinline__ PathCounter path_counter(uint32_t seed, long long p) {
-  return {static_cast<uint32_t>(p & 32767),
-          (seed + static_cast<uint32_t>(p >> 15)) * 0x9E3779B9u};
-}
-
-// the two standard normals of step `step`: r cos and the sign-bit r sin
-__device__ __forceinline__ void normal_pair(const PathCounter& pc, int step,
-                                            const float* log_c, float& z0, float& z1) {
-  const uint32_t base = pc.seed_term + static_cast<uint32_t>(step) * 0x7FEB352Du;
-  const uint32_t b1 = hash_u32(pc.idx ^ hash_u32(base));                // stream 0
-  const uint32_t b2 = hash_u32(pc.idx ^ hash_u32(base + 0x846CA68Bu));  // stream 1
-  const float r = sqrtf(fmaxf(-2.0f * poly_log(uniform_from_bits(b1), log_c), 0.0f));
-  const float c = poly_cospi(uniform_from_bits(b2));
-  const float sign = (b2 & 1u) == 0u ? 1.0f : -1.0f;
-  const float s = sign * sqrtf(fmaxf(1.0f - c * c, 0.0f));
-  z0 = r * c;
-  z1 = r * s;
-}
-
-// the uint32 bits of stream `stream` at step `step`; normal_pair draws
-// streams 0 and 1 of the same counter
-__device__ __forceinline__ uint32_t stream_bits(const PathCounter& pc, int step,
-                                                uint32_t stream) {
-  const uint32_t key = hash_u32(pc.seed_term + static_cast<uint32_t>(step) * 0x7FEB352Du +
-                                stream * 0x846CA68Bu);
-  return hash_u32(pc.idx ^ key);
-}
-
-// the (0, 1) uniform of stream `stream` at step `step`
-__device__ __forceinline__ float stream_uniform(const PathCounter& pc, int step,
-                                                uint32_t stream) {
-  return uniform_from_bits(stream_bits(pc, step, stream));
-}
-
-// Keyed form of the same stream, for kernels that share keys across a block.
-// The key of (step, stream) depends only on the TPU program (p >> 15), so a
-// CUDA block whose paths lie in one program computes each key once, keeps it
-// in shared memory, and every thread then hashes only its own index.
+// The stream of the TPU kernels' interpret mode is
+//   hash(idx ^ hash(seed_term + step * 0x7FEB352D + stream * 0x846CA68B)),
+// seed_term = (seed + program) * 0x9E3779B9.  The key of (step, stream), the
+// inner hash, depends only on the TPU program (p >> 15), so a CUDA block
+// whose paths lie in one program computes each key once, keeps it in shared
+// memory, and every thread then hashes only its own index.
 
 constexpr int kProgramPaths = 1 << 15;  // paths per TPU program
 
@@ -106,8 +67,8 @@ __device__ __forceinline__ uint32_t program_seed_term(uint32_t seed, uint32_t pr
   return (seed + program) * 0x9E3779B9u;
 }
 
-// the key of stream `stream` at step `step`: stream_bits(pc, step, stream)
-// equals bits_from_key(pc.idx, stream_key(pc.seed_term, step, stream))
+// the key of stream `stream` at step `step`; the path's bits are
+// bits_from_key(idx, stream_key(seed_term, step, stream))
 __device__ __forceinline__ uint32_t stream_key(uint32_t seed_term, int step, uint32_t stream) {
   return hash_u32(seed_term + static_cast<uint32_t>(step) * 0x7FEB352Du + stream * 0x846CA68Bu);
 }
@@ -116,7 +77,8 @@ __device__ __forceinline__ uint32_t bits_from_key(uint32_t idx, uint32_t key) {
   return hash_u32(idx ^ key);
 }
 
-// normal_pair from the keys of streams 0 and 1
+// the two standard normals of a step, r cos and the sign-bit r sin, from the
+// keys of streams 0 and 1
 __device__ __forceinline__ void normal_pair_from_keys(uint32_t idx, uint32_t key0, uint32_t key1,
                                                       const float* log_c, float& z0, float& z1) {
   const uint32_t b1 = bits_from_key(idx, key0);
@@ -156,6 +118,19 @@ struct KeyRing {
     return ring + (step & (2 * kChunk - 1)) * kSlots;
   }
 };
+
+// 1/x by the hardware's approximation, rcp.approx.ftz (one MUFU instruction,
+// ~2^-23 relative error), as the TPU kernels take pl.reciprocal(approx=True);
+// the division stands in for it in a build for the CPU
+__device__ __forceinline__ float rcp_approx(float x) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+#else
+  return 1.0f / x;
+#endif
+}
 
 // max(x, lo) that keeps a NaN x, as jnp.maximum and torch.clamp do
 __device__ __forceinline__ float max_keep_nan(float x, float lo) {

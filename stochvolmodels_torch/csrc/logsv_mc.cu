@@ -79,17 +79,6 @@ struct LogSvArgs {
 };
 static_assert(sizeof(LogSvArgs) == 17 * sizeof(float), "LogSvArgs layout");
 
-// 1/x by the hardware's approximation (the stand-in for the CPU divides)
-__device__ __forceinline__ float rcp_approx(float x) {
-#ifdef __CUDA_ARCH__
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return r;
-#else
-  return 1.0f / x;
-#endif
-}
-
 struct State {
   float x, lns, qvar, sigma;
   float sig2dt;  // (eta^2 dt sigma) sigma of the current sigma
@@ -113,7 +102,7 @@ struct Euler {
     s.x = __fmaf_rn(eta * s.sigma, w0, __fmaf_rn(alpha_half, s.sig2dt, s.x));
     const float drift = __fmaf_rn(
         adj, s.sigma,
-        __fmaf_rn(kappa2, theta - s.sigma, __fmaf_rn(k1theta, rcp_approx(s.sigma), -k1_vt2)));
+        __fmaf_rn(kappa2, theta - s.sigma, __fmaf_rn(k1theta, svt::rcp_approx(s.sigma), -k1_vt2)));
     s.lns = __fmaf_rn(volvol, w1, __fmaf_rn(beta, w0, __fmaf_rn(drift, dt, s.lns)));
     s.sigma = expf(s.lns);
     const float sig2dt = eta2dt * s.sigma * s.sigma;

@@ -25,33 +25,51 @@
 //   one-prng            one 32-bit draw split into two 16-bit uniforms
 //   no-prng             deterministic draws z0 = 1e-6 x + 0.01, z1 = z0 / 2
 //
-// Two pieces of the TPU kernel have no counterpart on the card:
-//   * its hardware PRNG becomes the counter-hash stream of counter_rng.cuh,
-//     the stream logsv_mc draws: streams 0 and 1 at salt = step index, and
-//     stream 0 alone for one-prng;
-//   * pl.reciprocal(approx=True) becomes the exact 1.0f / sigma of logsv_mc.
+// The step every variant changes is the one logsv_mc runs (its design, as
+// redesigned for this card), at the study's backbone eta = 1 and spot
+// measure, so that poly-bm is logsv_mc's step:
+//   * the TPU kernel's hardware PRNG becomes the counter-hash stream of
+//     counter_rng.cuh at salt = step index, and its keys come from a ring in
+//     shared memory (KeyRing: streams 0 and 1, 128 steps x 2 keys; one-prng
+//     stream 0 alone, 256 steps x 1 key; no-prng none), one barrier per
+//     refill, so each thread hashes only its own index;
+//   * 1/sigma in the drift is the hardware's approximate reciprocal
+//     (svt::rcp_approx), the counterpart of the TPU kernel's
+//     pl.reciprocal(sigma, approx=True);
+//   * the Euler update is written in multiply-adds (__fmaf_rn) with
+//     kappa1 theta and kappa1 + vartheta^2 / 2 hoisted; the draws and the
+//     polynomials stay uncontracted, so the random stream is bit for bit the
+//     TPU stream;
+//   * sigma'^2 dt of a step's qvar update is the next step's sigma^2 dt, the
+//     same operations in the same order (the variants without qvar compute
+//     it all the same: x needs it);
+//   * the step loop runs kStepsPerPass steps a pass with one refill test,
+//     the odd last step after the last pass, and reads the keys of a pass in
+//     one shared-memory load (16 bytes for two streams, 8 for one).
 // Two pieces differ from the TPU kernel on purpose:
 //   * the polynomial-ln radius is sqrt(max(-2 ln u, 0)), as the production
 //     Box-Muller takes it: the TPU kernel leaves out the max, and the
 //     polynomial ln is positive (up to 7.7e-7) on 7 of the 2^23 uniforms, so
 //     about one draw in 1.2 million would make a NaN path;
-//   * the loop runs all nb_steps steps, UNROLL at a time and the remainder one
-//     at a time; the TPU kernel's fori_loop runs nb_steps // unroll * unroll
-//     (the same at the study's 360 steps and unroll 2).
+//   * no-exp takes 1/sigma by IEEE division: its sigma = |1 + ln sigma| comes
+//     near 0 on many paths, where the drift k1 theta / sigma multiplies a
+//     last-bit difference of ln sigma by k1 theta dt / sigma^2, so the
+//     approximate reciprocal's last bits would reach 1e-2 of the output
+//     within 91 steps, and no plain version could hold it to 1e-4.  The
+//     plain version rounds no-exp's multiply-adds once, as the kernel does.
 //
-// What bounds it on an H100: per step and path up to four 32-bit integer
-// hashes, the Box-Muller transcendentals and one division, all in registers;
-// the memory traffic is 8 bytes per path (x0 in, the sum out) for hundreds
-// of steps, so every variant is bound by its operations, not by bandwidth.
-// `template <int VARIANT, int UNROLL>` gives each variant its own code, which
-// holds only that variant's work, and the step loop inside the thread keeps
-// the state in registers.
+// What bounds it on an H100: instruction issue.  Per step and path the work
+// is two key hashes, the Box-Muller transcendentals and the update, all in
+// registers; the memory traffic is 8 bytes per path (x0 in, the sum out)
+// for hundreds of steps.  `template <int VARIANT>` gives each variant its
+// own code, which holds only that variant's work.
 //
 // Built by stochvolmodels_torch/ops/_build.py with nvcc for sm_90a and
 // -fmad=false into a shared library with the plain C entry point
-// `logsv_variants_launch`: every operation rounds once, in the order written,
-// as in the plain version (stochvolmodels_torch/ops/mc_variants.py), which
-// calls the same CUDA expf, logf, cosf, sinf, sqrtf and IEEE division.
+// `logsv_variants_launch`: the compiler contracts nothing, so the FMAs are
+// the explicit ones above.  The kernel differs from its plain version
+// (stochvolmodels_torch/ops/mc_variants.py, one rounding per operation and an
+// exact 1/sigma) by the update's roundings, held to 1e-4 max(|plain|, 1).
 
 #include <cstdint>
 #include <cstring>
@@ -96,11 +114,28 @@ struct VariantArgs {
 };
 static_assert(sizeof(VariantArgs) == 18 * sizeof(float), "VariantArgs layout");
 
+constexpr int kThreads = 256;
+static_assert(svt::kProgramPaths % kThreads == 0, "a block must lie in one TPU program");
+// model steps in one pass of the step loop (scripts/sass_step_loops.py reads it)
+constexpr int kStepsPerPass = 2;
+
 constexpr float PI_F = 3.14159265358979323846f;
 constexpr float TWO_PI_F = 6.28318530717958647692f;
 constexpr float HALF_PI_F = 1.57079632679489661923f;
 constexpr float SQRT6_F = 2.44948974278317809820f;
 constexpr float TWO_M16 = 1.52587890625e-05f;  // 2^-16
+
+// the streams a variant draws a step: 0 and 1, 0 alone, or none
+__host__ __device__ constexpr int key_slots(int v) {
+  return v == NO_PRNG ? 0 : v == ONE_PRNG ? 1 : 2;
+}
+template <int V>
+using Keys = svt::KeyRing<kThreads, key_slots(V) == 0 ? 1 : key_slots(V)>;
+static_assert(svt::KeyRing<kThreads, 1>::kChunk % kStepsPerPass == 0 &&
+                  svt::KeyRing<kThreads, 2>::kChunk % kStepsPerPass == 0,
+              "a refill step must begin a pass");
+static_assert(svt::KeyRing<kThreads, 1>::kWords == svt::KeyRing<kThreads, 2>::kWords,
+              "one ring size for every variant");
 
 __host__ __device__ constexpr bool has_lns(int v) {
   return v != SIGMA_CARRY && v != SIGMA_CARRY_NOQVAR;
@@ -112,6 +147,10 @@ __host__ __device__ constexpr bool production_normals(int v) {
   return v == POLY_BM || v == POLY_ALL || v == SIGMA_CARRY || v == NO_QVAR ||
          v == SIGMA_CARRY_NOQVAR;
 }
+__host__ __device__ constexpr bool abs_sigma(int v) {
+  return v == NO_EXP || v == ALU_FLOOR || v == NO_PRNG;
+}
+__host__ __device__ constexpr bool poly_exp(int v) { return v == POLY_EXP || v == POLY_ALL; }
 
 // exp(x) for |x| <~ 1: degree-6 Taylor-like polynomial (`_poly_exp_small`)
 __device__ __forceinline__ float poly_exp_small(float x) {
@@ -119,17 +158,53 @@ __device__ __forceinline__ float poly_exp_small(float x) {
       0.041666666f + x * (0.008333452f + x * 0.0013908f)))));
 }
 
-// the two draws of step `step` (`_normals` and the draws of `_kernel`)
+// the keys of one step: stream 0 and, for two-stream variants, stream 1
+struct StepKeys {
+  uint32_t k0, k1;
+};
+
 template <int V>
-__device__ __forceinline__ void draws(const svt::PathCounter& pc, int step, const float* log_c,
-                                      float x, float& z0, float& z1) {
+__device__ __forceinline__ StepKeys step_keys(const uint32_t* ring, int step) {
+  if constexpr (key_slots(V) == 2) {
+    const uint2 k = *reinterpret_cast<const uint2*>(Keys<V>::row(ring, step));
+    return {k.x, k.y};
+  } else if constexpr (key_slots(V) == 1) {
+    return {*Keys<V>::row(ring, step), 0u};
+  } else {
+    return {0u, 0u};
+  }
+}
+
+// the keys of the pass that begins at the even step `step`: its rows are
+// adjacent and start on a multiple of 16 (two streams) or 8 bytes (one)
+template <int V>
+__device__ __forceinline__ void pass_keys(const uint32_t* ring, int step,
+                                          StepKeys (&k)[kStepsPerPass]) {
+  static_assert(kStepsPerPass == 2, "one load holds the keys of two steps");
+  if constexpr (key_slots(V) == 2) {
+    const uint4 q = *reinterpret_cast<const uint4*>(Keys<V>::row(ring, step));
+    k[0] = {q.x, q.y};
+    k[1] = {q.z, q.w};
+  } else if constexpr (key_slots(V) == 1) {
+    const uint2 q = *reinterpret_cast<const uint2*>(Keys<V>::row(ring, step));
+    k[0] = {q.x, 0u};
+    k[1] = {q.y, 0u};
+  } else {
+    k[0] = k[1] = {0u, 0u};
+  }
+}
+
+// the two draws of a step (`_normals` and the draws of `_kernel`)
+template <int V>
+__device__ __forceinline__ void draws(uint32_t idx, StepKeys keys, const float* log_c, float x,
+                                      float& z0, float& z1) {
   if constexpr (production_normals(V)) {
-    svt::normal_pair(pc, step, log_c, z0, z1);
+    svt::normal_pair_from_keys(idx, keys.k0, keys.k1, log_c, z0, z1);
   } else if constexpr (V == NO_PRNG) {
     z0 = x * 1e-6f + 0.01f;
     z1 = z0 * 0.5f;
   } else if constexpr (V == ONE_PRNG) {
-    const uint32_t b = svt::stream_bits(pc, step, 0);
+    const uint32_t b = svt::bits_from_key(idx, keys.k0);
     const float u1 = (static_cast<float>(static_cast<int>(b >> 16)) + 0.5f) * TWO_M16;
     const float u2 = (static_cast<float>(static_cast<int>(b & 0xFFFFu)) + 0.5f) * TWO_M16;
     const float r = sqrtf(-2.0f * logf(u1));
@@ -138,8 +213,8 @@ __device__ __forceinline__ void draws(const svt::PathCounter& pc, int step, cons
     z0 = r * c;
     z1 = sign * r * sqrtf(fmaxf(1.0f - c * c, 0.0f));
   } else {
-    const uint32_t b1 = svt::stream_bits(pc, step, 0);
-    const uint32_t b2 = svt::stream_bits(pc, step, 1);
+    const uint32_t b1 = svt::bits_from_key(idx, keys.k0);
+    const uint32_t b2 = svt::bits_from_key(idx, keys.k1);
     const float u1 = svt::uniform_from_bits(b1);
     const float u2 = svt::uniform_from_bits(b2);
     const float sign = (b2 & 1u) == 0u ? 1.0f : -1.0f;
@@ -174,66 +249,96 @@ __device__ __forceinline__ void draws(const svt::PathCounter& pc, int step, cons
   }
 }
 
-// one Euler step of the (x, ln sigma, sigma, qvar) state, as `_kernel.body`
-template <int V>
-__device__ __forceinline__ void euler_step(const svt::PathCounter& pc, int step,
-                                           const VariantArgs& a, const float* log_c,
-                                           float& x, float& lns, float& sigma, float& qvar) {
-  float z0, z1;
-  draws<V>(pc, step, log_c, x, z0, z1);
-  const float w0 = z0 * a.sdt;
-  const float w1 = z1 * a.sdt;
-  const float sig2dt = sigma * sigma * a.dt;
-  x = x - 0.5f * sig2dt + sigma * w0;
-  const float dln = ((a.k1theta * (1.0f / sigma) - a.kappa1) + a.kappa2 * (a.theta - sigma)
-                     - a.half_vt2) * a.dt + a.beta * w0 + a.volvol * w1;
-  if constexpr (has_lns(V)) lns = lns + dln;
-  float sigma_new;
-  if constexpr (V == NO_EXP || V == ALU_FLOOR || V == NO_PRNG) {
-    sigma_new = fabsf(1.0f + lns);
-  } else if constexpr (V == POLY_EXP || V == POLY_ALL) {
-    sigma_new = sigma * poly_exp_small(dln);
-  } else if constexpr (!has_lns(V)) {
-    sigma_new = sigma * expf(dln);
-  } else {
-    sigma_new = expf(lns);
+struct State {
+  float x, lns, sigma, qvar;
+  float sig2dt;  // (sigma sigma) dt of the current sigma
+};
+
+// the Euler step's loop invariants
+struct Euler {
+  float dt, sdt, k1theta, k1_vt2, kappa2, theta, beta, volvol;
+
+  __device__ __forceinline__ explicit Euler(const VariantArgs& a)
+      : dt(a.dt), sdt(a.sdt), k1theta(a.k1theta), k1_vt2(a.kappa1 + a.half_vt2),
+        kappa2(a.kappa2), theta(a.theta), beta(a.beta), volvol(a.volvol) {}
+
+  // one Euler step of the state, as `_kernel.body`: the drift of ln sigma is
+  // k1 theta / sigma - k1 + k2 (theta - sigma) - vartheta^2 / 2
+  template <int V>
+  __device__ __forceinline__ void step(float z0, float z1, State& s) const {
+    const float w0 = z0 * sdt;
+    const float w1 = z1 * sdt;
+    s.x = __fmaf_rn(s.sigma, w0, __fmaf_rn(-0.5f, s.sig2dt, s.x));
+    const float inv = V == NO_EXP ? 1.0f / s.sigma : svt::rcp_approx(s.sigma);
+    const float drift = __fmaf_rn(kappa2, theta - s.sigma, __fmaf_rn(k1theta, inv, -k1_vt2));
+    float sigma;
+    if constexpr (has_lns(V) && !poly_exp(V)) {
+      s.lns = __fmaf_rn(volvol, w1, __fmaf_rn(beta, w0, __fmaf_rn(drift, dt, s.lns)));
+      sigma = abs_sigma(V) ? fabsf(1.0f + s.lns) : expf(s.lns);
+    } else {  // sigma from its own increment; ln sigma is not needed
+      const float dln = __fmaf_rn(volvol, w1, __fmaf_rn(beta, w0, drift * dt));
+      sigma = s.sigma * (poly_exp(V) ? poly_exp_small(dln) : expf(dln));
+    }
+    const float sig2dt = sigma * sigma * dt;
+    if constexpr (has_qvar(V)) s.qvar = __fmaf_rn(0.5f, s.sig2dt + sig2dt, s.qvar);
+    s.sig2dt = sig2dt;
+    s.sigma = sigma;
   }
-  if constexpr (has_qvar(V)) qvar = qvar + 0.5f * (sig2dt + sigma_new * sigma_new * a.dt);
-  sigma = sigma_new;
+};
+
+template <int V>
+__device__ __forceinline__ void draw_and_step(uint32_t idx, StepKeys keys, const float* log_c,
+                                              const Euler& e, State& s) {
+  float z0, z1;
+  draws<V>(idx, keys, log_c, s.x, z0, z1);
+  e.step<V>(z0, z1, s);
 }
 
-template <int V, int UNROLL>
-__global__ void logsv_variant_kernel(const float* __restrict__ x0, float* __restrict__ out,
-                                     long long nb_path, uint32_t seed, int nb_steps,
-                                     VariantArgs a) {
-  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= nb_path) return;
-  const svt::PathCounter pc = svt::path_counter(seed, p);
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+logsv_variant_kernel(const float* __restrict__ x0, float* __restrict__ out, long long nb_path,
+                     uint32_t seed, int nb_steps, VariantArgs a) {
+  __shared__ __align__(16) uint32_t ring[Keys<V>::kWords];
+  const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  // threads past the end fill keys and meet every barrier, but load and store nothing
+  const bool live = p < nb_path;
+  const uint32_t idx = static_cast<uint32_t>(p & (svt::kProgramPaths - 1));
+  const uint32_t seed_term =
+      svt::program_seed_term(seed, blockIdx.x / (svt::kProgramPaths / kThreads));
+  const Euler e(a);
   float log_c[7];  // fully unrolled: lives in registers
 #pragma unroll
   for (int k = 0; k < 7; ++k) log_c[k] = a.log_c[k];
 
-  float x = x0[p];
-  float lns = a.lns0;
-  float sigma = a.sigma0;
-  float qvar = 0.0f;
+  State s{live ? x0[p] : 0.0f, a.lns0, a.sigma0, 0.0f, a.sigma0 * a.sigma0 * a.dt};
   int step = 0;
-  for (; step + UNROLL <= nb_steps; step += UNROLL) {
+#pragma unroll 1
+  for (; step + kStepsPerPass <= nb_steps; step += kStepsPerPass) {
+    if constexpr (key_slots(V) > 0) {
+      if ((step & (Keys<V>::kChunk - 1)) == 0) Keys<V>::fill(ring, seed_term, step);
+    }
+    StepKeys keys[kStepsPerPass];
+    pass_keys<V>(ring, step, keys);
 #pragma unroll
-    for (int k = 0; k < UNROLL; ++k) euler_step<V>(pc, step + k, a, log_c, x, lns, sigma, qvar);
+    for (int j = 0; j < kStepsPerPass; ++j) draw_and_step<V>(idx, keys[j], log_c, e, s);
   }
-  for (; step < nb_steps; ++step) euler_step<V>(pc, step, a, log_c, x, lns, sigma, qvar);
-  out[p] = x + sigma + qvar;
+#pragma unroll 1
+  for (; step < nb_steps; ++step) {  // the steps after the last whole pass
+    if constexpr (key_slots(V) > 0) {
+      if ((step & (Keys<V>::kChunk - 1)) == 0) Keys<V>::fill(ring, seed_term, step);
+    }
+    draw_and_step<V>(idx, step_keys<V>(ring, step), log_c, e, s);
+  }
+  if (live) out[p] = s.x + s.sigma + s.qvar;
 }
 
-template <int UNROLL>
-int launch_unrolled(int variant, unsigned int blocks, int threads, cudaStream_t stream,
-                    const float* x0, float* out, long long nb_path, uint32_t seed,
-                    int nb_steps, const VariantArgs& a) {
-#define SVT_VARIANT_CASE(V)                                                        \
-  case V:                                                                          \
-    logsv_variant_kernel<V, UNROLL><<<blocks, threads, 0, stream>>>(x0, out, nb_path, \
-                                                                    seed, nb_steps, a); \
+int launch_variant(int variant, unsigned int blocks, cudaStream_t stream, const float* x0,
+                   float* out, long long nb_path, uint32_t seed, int nb_steps,
+                   const VariantArgs& a) {
+#define SVT_VARIANT_CASE(V)                                                                  \
+  case V:                                                                                    \
+    logsv_variant_kernel<V><<<blocks, kThreads, 0, stream>>>(x0, out, nb_path, seed, nb_steps, \
+                                                             a);                             \
     break;
   switch (variant) {
     SVT_VARIANT_CASE(FULL_FAST)
@@ -259,25 +364,21 @@ int launch_unrolled(int variant, unsigned int blocks, int threads, cudaStream_t 
 
 }  // namespace
 
-// Launches variant `variant` (0 .. 13, the order of the enum above) with
-// `threads` threads per block (a multiple of 32 up to 1024) and a step loop
-// unrolled `unroll` times (2, the TPU study's unroll), on `stream`; `host_args` points to 18
-// floats laid out as VariantArgs.  Returns the cudaError_t of the launch (0 on
-// success), cudaErrorInvalidValue for a variant, unroll or block size it
+// Launches variant `variant` (0 .. 13, the order of the enum above) on
+// `stream`; `unroll` must be kStepsPerPass (2, the TPU study's unroll) and
+// `threads` 256 (a block lies in one TPU program); `host_args` points to 18
+// floats laid out as VariantArgs.  Returns the cudaError_t of the launch (0
+// on success), cudaErrorInvalidValue for a variant, unroll or block size it
 // does not take.
 extern "C" int logsv_variants_launch(const float* x0, float* out, long long nb_path,
                                      uint32_t seed, int nb_steps, int variant, int unroll,
                                      int threads, const float* host_args, void* stream) {
-  if (threads < 32 || threads > 1024 || threads % 32 != 0 || nb_steps < 0) {
+  if (threads != kThreads || unroll != kStepsPerPass || nb_steps < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   VariantArgs a;
   std::memcpy(&a, host_args, sizeof(a));
-  const long long blocks = (nb_path + threads - 1) / threads;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto b = static_cast<unsigned int>(blocks);
-  switch (unroll) {
-    case 2: return launch_unrolled<2>(variant, b, threads, s, x0, out, nb_path, seed, nb_steps, a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const auto blocks = static_cast<unsigned int>((nb_path + kThreads - 1) / kThreads);
+  return launch_variant(variant, blocks, static_cast<cudaStream_t>(stream), x0, out, nb_path,
+                        seed, nb_steps, a);
 }

@@ -6,16 +6,21 @@ Counterpart of ``scripts/bench_pallas_variants.py`` (its TPU kernel
 :data:`VARIANTS` changes one piece of the production Euler step of
 ``csrc/logsv_mc.cu`` (library vs polynomial transcendentals, no exp, no
 normals, no random bits, fewer state registers), so that its time says what
-that piece costs; ``csrc/logsv_variants.cu`` lists what each one does.  Every
-variant runs the study's fixed parameters from ln sigma = log 0.84 and
-returns x + sigma + qvar per path.
+that piece costs; ``csrc/logsv_variants.cu`` lists what each one does, and
+runs logsv_mc's design (keys from a ring in shared memory, the approximate
+1/sigma, the update in multiply-adds, the carried sigma^2 dt, two steps a
+pass), so that ``poly-bm`` is logsv_mc's step.  Every variant runs the
+study's fixed parameters from ln sigma = log 0.84 and returns x + sigma +
+qvar per path.
 
 * :func:`run_variant_cuda` launches the hand-written kernel; CUDA float32
-  tensors only, it raises on anything else, and its ``.launches`` counts
-  launches.
+  tensors and blocks of 256 threads only, it raises on anything else, and
+  its ``.launches`` counts launches.
 * :func:`run_variant_torch` is the plain version: the same random stream
-  (``_PathNormals``), polynomials and float32 step on whole tensors,
-  operation for operation, on any device.
+  (``_PathNormals``), polynomials and float32 step on whole tensors, one
+  rounding per operation, on any device; ``no-exp`` takes the kernel's
+  multiply-adds, rounded once (``_run_abs_sigma_fused``).  The kernel is
+  held to it at 1e-4 max(|plain|, 1).
 
 Nothing dispatches between the two: the study calls the kernel, the tests
 and ``chip_smoke.py`` hold it against the plain version.
@@ -42,15 +47,28 @@ VARIANTS = ("full-fast", "full-sincos", "no-normals", "no-exp", "alu-floor", "po
             "sigma-carry-noqvar", "one-prng", "no-prng")
 # the step-loop unrolls the kernel is built for: the TPU study's configurations
 UNROLLS = (2,)
+# the CUDA block: 256 threads, so that a block lies in one TPU program
+BLOCK_ROWS = 256
 # (float32, 32-bit integer) operations per path-step of each variant, counted
-# from csrc/logsv_variants.cu by the rules of cuda_mc.OPS_PER_STEP.  A libm
-# call is one source operation but several instructions, so the library
-# variants' counts are lower bounds of their work.
+# from csrc/logsv_variants.cu by the rules of cuda_mc.OPS_PER_STEP: the
+# production normals from the ring's keys 46 + 28; two other draws from keys
+# 18 integer operations for the bits, 4 for the uniforms, 2 for the sign bit
+# where a variant takes it (one-prng: 9 + 4); the ring's row, its refill test
+# and the loop counter 6 integer operations (no-prng: the loop counter, 2).
+# The step is poly-bm's 24 (the increments 2, x 4, the drift with its
+# reciprocal 6, ln sigma 6, expf 1, the carried sigma^2 dt 2, qvar 3);
+# |1 + ln sigma| takes 2 for expf's 1, the polynomial exp 13 (and sigma's
+# increment 5 for ln sigma's 6), sigma-carry sigma exp(d ln sigma) 2, and the
+# variants without qvar 3 less.  poly-bm is logsv_mc's (73, 34) less the two
+# operations that only logsv_mc has: the eta sigma product (1) and the adj
+# sigma multiply-add (2).  A libm call is one source operation but several
+# instructions, so the library variants' counts are lower bounds of their
+# work.
 OPS_PER_STEP = {
-    "full-fast": (44, 45), "full-sincos": (39, 43), "no-normals": (36, 43), "no-exp": (45, 45),
-    "alu-floor": (34, 43), "poly-bm": (73, 49), "poly-bm2": (76, 49), "poly-exp": (56, 45),
-    "poly-all": (85, 49), "sigma-carry": (73, 49), "no-qvar": (68, 49),
-    "sigma-carry-noqvar": (68, 49), "one-prng": (46, 25), "no-prng": (31, 2)}
+    "full-fast": (41, 30), "full-sincos": (36, 28), "no-normals": (33, 28), "no-exp": (42, 30),
+    "alu-floor": (31, 28), "poly-bm": (70, 34), "poly-bm2": (73, 34), "poly-exp": (52, 30),
+    "poly-all": (81, 34), "sigma-carry": (70, 34), "no-qvar": (67, 34),
+    "sigma-carry-noqvar": (67, 34), "one-prng": (43, 19), "no-prng": (28, 2)}
 
 _f32 = np.float32
 # the study's fixed parameters and start, float32 as the TPU kernel takes them
@@ -132,6 +150,27 @@ def _draws(rng: _PathNormals, step: int, variant: str,
     return r * c, r * (_sign(b2, 1) * torch.sqrt(torch.clamp(1.0 - c * c, min=0.0)))
 
 
+def _fma(a, b, c) -> torch.Tensor:
+    """a * b + c rounded once to float32, as ``__fmaf_rn``, for float32
+    tensors or Python floats that are float32 values: a * b is exact in
+    float64, the sum is rounded to float64 toward odd (its round-to-nearest,
+    moved one float64 step toward the exact sum where that is inexact and
+    even), and then to float32, which rounds the exact sum once."""
+    ref = next(t for t in (a, b, c) if torch.is_tensor(t))
+    a, b, c = (t.double() if torch.is_tensor(t) else torch.tensor(t, dtype=torch.float64,
+                                                                   device=ref.device)
+               for t in (a, b, c))
+    p = a * b
+    s = p + c
+    # the sum's rounding error, exactly (Knuth's two-sum)
+    c_part = s - p
+    err = (p - (s - c_part)) + (c - c_part)
+    odd = (s.view(torch.int64) & 1) == 1
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
+    s = torch.where((err != 0) & torch.isfinite(err) & ~odd, torch.nextafter(s, toward), s)
+    return s.float()
+
+
 def run_variant_torch(seed: int,
                       x0: torch.Tensor,
                       nb_steps: int,
@@ -142,11 +181,19 @@ def run_variant_torch(seed: int,
     """x + sigma + qvar per path after ``nb_steps`` Euler steps of ``variant``,
     by the plain tensor version of the kernel, on ``x0``'s device.
 
-    The same random stream and float32 step as the CUDA kernel, operation
-    for operation.  ``reciprocal`` is the 1/sigma of the ln-sigma drift
+    The same random stream and float32 step as the CUDA kernel, one rounding
+    per operation in the order of the TPU kernel, where the CUDA kernel
+    rounds its multiply-adds once and takes an approximate 1/sigma.
+    ``no-exp`` takes the kernel's step instead (:func:`_run_abs_sigma_fused`),
+    as its kernel takes an exact 1/sigma: its sigma = |1 + ln sigma| comes
+    near 0, where the drift's k1 theta / sigma carries a last-bit difference
+    of ln sigma into the output, so only the kernel's own roundings hold it
+    to the kernel.  ``reciprocal`` is the 1/sigma of the ln-sigma drift
     (exact by default); tests swap it to emulate the TPU kernel's
     approximate reciprocal.
     """
+    if variant == "no-exp":
+        return _run_abs_sigma_fused(seed, x0, nb_steps, dt, variant, reciprocal)
     nb_path = _check(x0, variant)
     dt, sdt, theta, kappa1, kappa2, beta, volvol, k1theta, half_vt2, lns0, sigma0 = (
         float(v) for v in _scalars(dt))
@@ -181,6 +228,43 @@ def run_variant_torch(seed: int,
     return x + sigma + qvar
 
 
+def _run_abs_sigma_fused(seed: int,
+                         x0: torch.Tensor,
+                         nb_steps: int,
+                         dt: float,
+                         variant: str,
+                         reciprocal: Callable[[torch.Tensor], torch.Tensor] = torch.reciprocal
+                         ) -> torch.Tensor:
+    """x + sigma + qvar of a variant with sigma = |1 + ln sigma| (``no-exp``,
+    ``alu-floor``, ``no-prng``) by the kernel's step: its multiply-adds
+    rounded once (:func:`_fma`) in its order, the carried sigma^2 dt and
+    ``reciprocal`` for 1/sigma, as ``Euler::step`` of the kernel takes them."""
+    nb_path = _check(x0, variant)
+    if variant not in ("no-exp", "alu-floor", "no-prng"):
+        raise ValueError(f"the fused step sets sigma = |1 + ln sigma|; {variant!r} does not")
+    dt, sdt, theta, kappa1, kappa2, beta, volvol, k1theta, half_vt2, lns0, sigma0 = (
+        float(v) for v in _scalars(dt))
+    k1_vt2 = float(_f32(kappa1) + _f32(half_vt2))
+    rng = _PathNormals(seed, nb_path, x0.device)
+    x = x0.clone()
+    lns = torch.full_like(x0, lns0)
+    sigma = torch.full_like(x0, sigma0)
+    qvar = torch.zeros_like(x0)
+    sig2dt = sigma * sigma * dt
+    for step in range(nb_steps):
+        z0, z1 = _draws(rng, step, variant, x)
+        w0 = z0 * sdt
+        w1 = z1 * sdt
+        x = _fma(sigma, w0, _fma(-0.5, sig2dt, x))
+        drift = _fma(kappa2, theta - sigma, _fma(k1theta, reciprocal(sigma), -k1_vt2))
+        lns = _fma(volvol, w1, _fma(beta, w0, _fma(drift, dt, lns)))
+        sigma = torch.abs(1.0 + lns)
+        sigma_new_2dt = sigma * sigma * dt
+        qvar = _fma(0.5, sig2dt + sigma_new_2dt, qvar)
+        sig2dt = sigma_new_2dt
+    return x + sigma + qvar
+
+
 # logsv_variants_launch: (x0, out, nb_path, seed, nb_steps, variant, unroll,
 # threads, host args, stream)
 _LAUNCH_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint32,
@@ -193,22 +277,23 @@ def run_variant_cuda(seed: int,
                      nb_steps: int,
                      dt: float,
                      variant: str,
-                     block_rows: int = 256,
+                     block_rows: int = BLOCK_ROWS,
                      unroll: int = 2) -> torch.Tensor:
     """x + sigma + qvar per path by the hand-written CUDA kernel.
 
     Mirrors ``_run`` of the TPU study: ``block_rows`` becomes the CUDA block
-    size (a multiple of 32 up to 1024) and ``unroll`` the step-loop unroll
-    (one of ``UNROLLS``).  ``x0`` is (nb_path,) float32, contiguous, on a CUDA device,
-    with nb_path a multiple of 128.  Launches on the current stream without
-    synchronising; a refused launch raises.  ``run_variant_cuda.launches``
-    counts launches.
+    size, which must be ``BLOCK_ROWS`` (256: a block lies in one TPU program
+    and shares its keys), and ``unroll`` the step-loop unroll (one of
+    ``UNROLLS``); anything else raises ValueError before a launch.  ``x0`` is
+    (nb_path,) float32, contiguous, on a CUDA device, with nb_path a multiple
+    of 128.  Launches on the current stream without synchronising; a refused
+    launch raises.  ``run_variant_cuda.launches`` counts launches.
     """
     nb_path = _check(x0, variant)
+    if unroll not in UNROLLS or block_rows != BLOCK_ROWS:
+        raise ValueError(f"the kernel takes unroll in {UNROLLS} and a block of {BLOCK_ROWS} "
+                         f"threads, got unroll {unroll}, block {block_rows}")
     cuda_mc._check_cuda_state(x0)
-    if unroll not in UNROLLS or block_rows % 32 or not 32 <= block_rows <= 1024:
-        raise ValueError(f"the kernel takes unroll in {UNROLLS} and a block of 32..1024 "
-                         f"threads in steps of 32, got unroll {unroll}, block {block_rows}")
     launch = cuda_mc._launcher("logsv_variants", _LAUNCH_ARGTYPES)
     host_args = np.concatenate([_scalars(dt), LOG_C])
     out = torch.empty_like(x0)

@@ -29,6 +29,9 @@ struct dim3 {
 struct __attribute__((aligned(8))) uint2 {
   uint32_t x, y;
 };
+struct __attribute__((aligned(16))) uint4 {
+  uint32_t x, y, z, w;
+};
 
 using cudaStream_t = void*;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };

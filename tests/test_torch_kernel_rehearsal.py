@@ -1,6 +1,7 @@
-"""A rehearsal of the LogSV and Heston CUDA kernels on the CPU.
+"""A rehearsal of the LogSV, Heston and variant-study CUDA kernels on the CPU.
 
-``csrc/logsv_mc.cu`` and ``csrc/heston_mc.cu`` are compiled with ``g++
+``csrc/logsv_mc.cu``, ``csrc/heston_mc.cu`` and ``csrc/logsv_variants.cu``
+are compiled with ``g++
 -std=c++20 -ffp-contract=off`` against the stand-in runtime
 ``tests/cuda_stub/cuda_runtime.h`` (one std::thread per CUDA thread, a
 std::barrier for ``__syncthreads``, the blocks one after another), their
@@ -17,7 +18,20 @@ the kernels' FMAs (std::fmaf here) and the host libm's expf and sqrtf round
 otherwise than the plain versions by an ulp now and then.  The stand-in
 takes 1/sigma by division where the card takes rcp.approx.  Measured at 131
 steps: max |gap| 2.4e-6 (LogSV and Heston), at most 1.3e-6 of
-max(|plain|, 1).  Skips where g++ is absent; ~15 s.
+max(|plain|, 1).
+
+The variant study runs the same paths and steps.  ``alu-floor`` and
+``no-prng`` call no libm function and, on the CPU, no approximate
+reciprocal, so the plain version with the kernel's multiply-adds
+(``mc_variants._run_abs_sigma_fused``) equals the kernel bit for bit: that holds
+the ring's keys (``alu-floor`` draws streams 0 and 1), the update, the
+carried sigma^2 dt, the odd last step and the half-empty block exactly.
+``poly-bm`` is held at 1e-5 of max(|plain|, 1) (measured 1.3e-6) and
+``one-prng`` (the one-slot ring) at 1e-3 (measured 7.4e-5): the host's
+logf and cosf round otherwise than torch's, and one-prng's sin from
+sqrt(1 - cos^2) amplifies that where its 16-bit uniform puts cos near 1;
+a wrong key gives O(1) gaps.  The C entry refuses blocks other than 256
+threads and unrolls other than 2.  Skips where g++ is absent; ~35 s.
 """
 import ctypes
 import re
@@ -29,7 +43,7 @@ import numpy as np
 import pytest
 import torch
 
-from stochvolmodels_torch.ops import cuda_mc
+from stochvolmodels_torch.ops import cuda_mc, mc_variants
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "stochvolmodels_torch" / "csrc"
@@ -50,10 +64,13 @@ def kernels(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the kernel sources for the CPU")
     out_dir = tmp_path_factory.mktemp("rehearsal")
-    return {name: compile_kernel(name, out_dir) for name in ("logsv_mc", "heston_mc")}
+    argtypes = {"logsv_mc": cuda_mc._STATE_LAUNCH_ARGTYPES,
+                "heston_mc": cuda_mc._STATE_LAUNCH_ARGTYPES,
+                "logsv_variants": mc_variants._LAUNCH_ARGTYPES}
+    return {name: compile_kernel(name, out_dir, types) for name, types in argtypes.items()}
 
 
-def compile_kernel(name: str, out_dir: Path):
+def compile_kernel(name: str, out_dir: Path, argtypes):
     """the C entry point of ``csrc/<name>.cu`` built for the CPU against the
     stand-in runtime."""
     src = (CSRC / f"{name}.cu").read_text()
@@ -66,7 +83,7 @@ def compile_kernel(name: str, out_dir: Path):
                     "-pthread", f"-I{STUB}", f"-I{CSRC}", "-o", str(lib), str(cpp)],
                    check=True, capture_output=True, text=True, timeout=120)
     fn = getattr(ctypes.CDLL(str(lib)), f"{name}_launch")
-    fn.argtypes, fn.restype = cuda_mc._STATE_LAUNCH_ARGTYPES, ctypes.c_int
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return fn
 
 
@@ -123,3 +140,40 @@ def test_heston_kernel_matches_plain_version(kernels, name, steps):
     ref = cuda_mc.simulate_heston_terminal_torch(9, *map(torch.as_tensor, (x0, v0, q0)),
                                                  ttm=TTM[steps], **p)
     assert_matches(outs, ref)
+
+
+# the variant study: (variant, steps, limit of |kernel - plain| / max(|plain|, 1)); 0 is bit for bit
+VARIANT_CASES = [("alu-floor", 131, 0.0), ("alu-floor", 129, 0.0), ("no-prng", 131, 0.0),
+                 ("poly-bm", 131, TOL), ("poly-bm", 129, TOL), ("one-prng", 131, 1e-3)]
+
+
+def run_variant(launch, variant: str, nb_steps: int, x0: np.ndarray, threads=256, unroll=2):
+    out = np.full(NB_PATH, np.nan, dtype=np.float32)
+    host_args = np.concatenate([mc_variants._scalars(1.0 / 360.0), cuda_mc.LOG_C])
+    err = launch(x0.ctypes.data, out.ctypes.data, NB_PATH, 9, nb_steps,
+                 mc_variants.VARIANTS.index(variant), unroll, threads, host_args.ctypes.data,
+                 None)
+    return err, out
+
+
+@pytest.mark.parametrize("variant,steps,limit", VARIANT_CASES)
+def test_variant_kernel_matches_plain_version(kernels, variant, steps, limit):
+    x0 = random_state((0.5, 1.2))[0]
+    err, out = run_variant(kernels["logsv_variants"], variant, steps, x0)
+    assert err == 0 and np.all(np.isfinite(out))
+    # the stand-in divides exactly, so the kernel's FMAs give its bits
+    plain = mc_variants._run_abs_sigma_fused if limit == 0.0 else mc_variants.run_variant_torch
+    ref = plain(9, torch.as_tensor(x0), steps, 1.0 / 360.0, variant).numpy()
+    if limit == 0.0:
+        np.testing.assert_array_equal(out, ref)
+    else:
+        assert np.max(np.abs(out - ref) / np.maximum(np.abs(ref), 1.0)) <= limit
+
+
+def test_variant_entry_refuses_what_it_does_not_take(kernels):
+    x0 = random_state((0.5, 1.2))[0]
+    launch = kernels["logsv_variants"]
+    for threads, unroll, variant in ((128, 2, "poly-bm"), (512, 2, "poly-bm"), (256, 1, "poly-bm"),
+                                     (256, 4, "poly-bm")):
+        err, out = run_variant(launch, variant, 4, x0, threads=threads, unroll=unroll)
+        assert err != 0 and np.all(np.isnan(out))
