@@ -61,8 +61,8 @@ terminal models (Bachelier prices, deltas, vegas and implied vols, the
 incomplete beta, Student-t prices and implied vols and GMM prices, each on
 the card against the CPU; the normal bisection's graph against its eager
 call; one GMM and one Student-t per-slice SLSQP fit of the first two
-slices) and the LogSV and Heston LM sweeps of 64 perturbed BTC chains (one
-CUDA graph each, chains/s, peak memory, device busy; the first, middle and
+slices) and the LogSV and Heston LM sweeps of 64 perturbed BTC chains (two
+CUDA graphs each, the initial state and one iteration, chains/s, peak memory, device busy; the first, middle and
 last chain against their single-chain fits; captured against eager bit for
 bit on 4 chains).  Then the factor-HJM swaption cube on the USD cube of 18
 Aug 2023 at the paper's fitted parameters (12 slices x 9 strikes): the
@@ -1592,7 +1592,7 @@ def _mesh_sweep_phase(svt, graphs, chain) -> None:
               f"{MESH_SWEEP_ITERS} iterations"
               + (f" at {MESH_SWEEP_YEAR_STEPS} steps/yr" if name == "LogSV" else "")
               + f": make_path_mesh() ({meshes['make_path_mesh()'].size} card) equal bit for bit "
-              f"to mesh=None; two shards of cuda:0 (one graph of {MESH_SWEEP_CHAINS // 2} chains, "
+              f"to mesh=None; two shards of cuda:0 (graphs of {MESH_SWEEP_CHAINS // 2} chains, "
               f"replayed per shard) against mesh=None max relative gap {gap:.2e}; warm walls "
               + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()) + f" | {smi}", flush=True)
 
@@ -1740,7 +1740,7 @@ def _sweep_phase(svt, graphs, chain) -> None:
                                                    device=DEVICE),
                    lambda p: [p.v0, p.theta, p.kappa, p.rho, p.volvol], "heston_lm_sweep")}
     for name, (run, single, vector, graph) in models.items():
-        replays = graphs.REPLAYS[graph]
+        replays, steps = graphs.REPLAYS[graph + "_init"], graphs.REPLAYS[graph + "_step"]
         torch.cuda.reset_peak_memory_stats()
         fits, capture_s = _timed_s(lambda: run(chains))
         peak_capture = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1748,7 +1748,9 @@ def _sweep_phase(svt, graphs, chain) -> None:
         again, warm_s = _timed_s(lambda: run(chains))
         peak_warm = torch.cuda.max_memory_allocated() / 2 ** 30
         _check(_same(again, fits), f"{name} sweep: a warm call differs from the first")
-        _check(graphs.REPLAYS[graph] == replays + 2, f"{name} sweep: the graph did not replay")
+        _check(graphs.REPLAYS[graph + "_init"] == replays + 2
+               and graphs.REPLAYS[graph + "_step"] == steps + 2 * SWEEP_ITERS,
+               f"{name} sweep: the graphs did not replay")
         again, counts = _profiled(lambda: run(chains))
         _check(_same(again, fits), f"{name} sweep: the profiled call differs from the first")
         costs = np.array([c for _, c in fits])
@@ -1768,7 +1770,8 @@ def _sweep_phase(svt, graphs, chain) -> None:
         print(f"[sweep] {name} LM sweep of {SWEEP_CHAINS} perturbed BTC chains (ivols x "
               f"[0.90, 1.10]), {SWEEP_ITERS} iterations"
               + (f" at {SWEEP_YEAR_STEPS} steps/yr" if name == "LogSV" else "")
-              + f", one CUDA graph: capture (first call) {capture_s:.2f} s, warm "
+              + f", two CUDA graphs (the initial state, and one iteration replayed "
+              f"{SWEEP_ITERS} times): capture (first call) {capture_s:.2f} s, warm "
               f"{warm_s:.3f} s, {SWEEP_CHAINS / warm_s:.2f} chains/s; peak memory "
               f"{peak_capture:.2f} GiB capturing, {peak_warm:.2f} GiB warm; profiled: "
               f"{_busy_line(counts)}; cost median {np.median(costs):.3e}, max "

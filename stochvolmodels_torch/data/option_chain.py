@@ -18,7 +18,7 @@ import torch
 from stochvolmodels_torch.config import encode_optiontypes
 from stochvolmodels_torch.ops import bachelier as bachel
 from stochvolmodels_torch.ops import bsm
-from stochvolmodels_torch.utils.funcs import SeriesLike, npad, unpad
+from stochvolmodels_torch.utils.funcs import SeriesLike, npad, to_series, unpad
 from stochvolmodels_torch.utils.var_swap import compute_var_swap_strike
 
 
@@ -276,8 +276,8 @@ class OptionChain:
 
     def get_slice_varswap_strikes(self, floor_with_atm_vols: bool = True):
         """varswap strike per maturity from the option strip at the mid vols,
-        floored at the ATM vols by default; a Series-like (values indexed by
-        ttm, :class:`SeriesLike`), as the JAX package returns a Series."""
+        floored at the ATM vols by default, indexed by ttm: a pandas Series
+        as in the JAX package (:func:`to_series`)."""
         host = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64))
         varswap_strikes = np.zeros_like(self.ttms)
         for idx, (ttm, vols) in enumerate(zip(self.ttms, self.get_mid_vols())):
@@ -292,7 +292,7 @@ class OptionChain:
                 forward=self.forwards[idx], ttm=ttm)
         if floor_with_atm_vols:
             varswap_strikes = np.maximum(self.get_chain_atm_vols(), varswap_strikes)
-        return SeriesLike(values=varswap_strikes, index=self.ttms)
+        return to_series(varswap_strikes, self.ttms)
 
     def compute_model_ivols_from_chain_data(self, model_prices,
                                             forwards: np.ndarray = None,

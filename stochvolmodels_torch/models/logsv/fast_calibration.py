@@ -110,10 +110,11 @@ def _fit_params(best: torch.Tensor) -> LogSvParams:
                        kappa2=best[2] / best[1], beta=best[3], volvol=best[4])
 
 
-def _lm_run(p0, ttms, forwards, discfactors, strikes, optioncodes, mask, market, sqrtw,
-            lower, upper, vol_scaler, *, ttms_static, year_steps, nb_iters, constraints_type):
-    """the LM fit on tensors only (so that it can be captured): returns
-    (best parameters, best cost)."""
+def _lm_residuals(ttms, forwards, discfactors, strikes, optioncodes, mask, market, sqrtw,
+                  vol_scaler, *, ttms_static, year_steps, constraints_type):
+    """the LM residual function of the PARAMS5 vector: sqrt-weighted
+    fast-IV errors (0 where the model vol is NaN) and sqrt(10) x the
+    constraint gaps of ``constraints_type``."""
     grid = ChainGrid(ttms=ttms, forwards=forwards, discfactors=discfactors, strikes=strikes,
                      optioncodes=optioncodes, mask=mask)
     sqrt10 = math.sqrt(10.0)
@@ -128,6 +129,16 @@ def _lm_run(p0, ttms, forwards, discfactors, strikes, optioncodes, mask, market,
             r = torch.cat([r, torch.stack(pen)])
         return r
 
+    return residuals
+
+
+def _lm_run(p0, ttms, forwards, discfactors, strikes, optioncodes, mask, market, sqrtw,
+            lower, upper, vol_scaler, *, ttms_static, year_steps, nb_iters, constraints_type):
+    """the LM fit on tensors only (so that it can be captured): returns
+    (best parameters, best cost)."""
+    residuals = _lm_residuals(ttms, forwards, discfactors, strikes, optioncodes, mask, market,
+                              sqrtw, vol_scaler, ttms_static=ttms_static, year_steps=year_steps,
+                              constraints_type=constraints_type)
     return lm_minimize(residuals, p0, lower, upper, nb_iters=nb_iters)
 
 

@@ -6,10 +6,10 @@ Parameters of the log-normal beta SV model with quadratic drift
                + beta sigma_t dW0_t + volvol sigma_t dW1_t.
 
 PyTorch-package counterpart of ``stochvolmodels_tpu/models/logsv/params.py``.
-The vol backbone is held as a pair of numpy arrays ``(ttms, etas)``; it may
-be given as that pair or, as the JAX package takes it, as a series of etas
-indexed by ttm (a pandas Series, read through ``.index`` and ``.to_numpy()``
-so that this package does not import pandas).
+The vol backbone is a series of etas indexed by ttm, held as it is given
+(a pandas Series, as the JAX package holds it, or the port's ``SeriesLike``;
+read through ``.index`` and ``.to_numpy()`` so that this package does not
+import pandas); a ``(ttms, etas)`` pair is held as such a series.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import numpy as np
 
 from stochvolmodels_torch.config import VariableType
 from stochvolmodels_torch.models.model_pricer import ModelParams
-from stochvolmodels_torch.utils.funcs import find_nearest
+from stochvolmodels_torch.utils.funcs import find_nearest, to_series
 
 
 def _backbone_pair(backbone) -> Optional[Tuple[np.ndarray, np.ndarray]]:
@@ -28,11 +28,25 @@ def _backbone_pair(backbone) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     indexed by ttm) or as a (ttms, etas) pair; None stays None."""
     if backbone is None:
         return None
-    if hasattr(backbone, "index") and hasattr(backbone, "to_numpy"):
+    if _is_series(backbone):
         ttms, etas = backbone.index, backbone.to_numpy()
     else:
         ttms, etas = backbone
     return np.asarray(ttms, dtype=float), np.asarray(etas, dtype=float)
+
+
+def _is_series(backbone) -> bool:
+    return hasattr(backbone, "index") and hasattr(backbone, "to_numpy")
+
+
+def _backbone_series(backbone):
+    """the backbone as held: a Series-like as given (the JAX package holds
+    the Series it is given), a (ttms, etas) pair as a Series
+    (:func:`to_series`); None stays None."""
+    if backbone is None or _is_series(backbone):
+        return backbone
+    ttms, etas = _backbone_pair(backbone)
+    return to_series(etas, ttms)
 
 
 @dataclass
@@ -44,13 +58,13 @@ class LogSvParams(ModelParams):
     kappa2: Optional[float] = 2.5  # None maps to kappa1 / theta
     beta: float = -1.0
     volvol: float = 1.0
-    vol_backbone: Optional[Tuple[np.ndarray, np.ndarray]] = None  # (ttms, etas), or a Series
+    vol_backbone: Optional[Any] = None  # etas indexed by ttm (or a (ttms, etas) pair, read as one)
     H: float = 0.5
     weights: Optional[np.ndarray] = None
     nodes: Optional[np.ndarray] = None
 
     def __post_init__(self):
-        self.vol_backbone = _backbone_pair(self.vol_backbone)
+        self.vol_backbone = _backbone_series(self.vol_backbone)
         if self.kappa2 is None:
             self.kappa2 = self.kappa1 / self.theta
         if not 1e-4 < self.H <= 0.5:
@@ -79,13 +93,13 @@ class LogSvParams(ModelParams):
     def set_vol_backbone(self, vol_backbone, etas: Optional[np.ndarray] = None) -> None:
         """set the backbone from one Series-like ``vol_backbone`` (as the JAX
         package's setter takes it), or from ttms ``vol_backbone`` and ``etas``."""
-        self.vol_backbone = _backbone_pair(vol_backbone if etas is None else (vol_backbone, etas))
+        self.vol_backbone = _backbone_series(vol_backbone if etas is None else (vol_backbone, etas))
 
     def get_vol_backbone_eta(self, tau: float) -> float:
         """backbone scaling at the nearest quoted maturity at or beyond tau."""
         if self.vol_backbone is None:
             return 1.0
-        ttms, etas = self.vol_backbone
+        ttms, etas = _backbone_pair(self.vol_backbone)
         nearest_tau = find_nearest(a=ttms, value=tau, is_equal_or_largest=True)
         return float(etas[int(np.flatnonzero(ttms == nearest_tau)[0])])
 

@@ -9,18 +9,20 @@ k* x k* system, as the JAX package does.  :func:`compute_analytic_qvar_torch`
 takes float or tensor parameters and is differentiable: its three blocks
 come from one ``torch.linalg.matrix_exp`` of the Van Loan augmented matrix
 in float64 (the JAX package sums a Taylor series instead, because a TPU has
-no float64 LU).  The backbone fit returns a pandas-free Series-like
-(:class:`SeriesLike`, index and values) that ``LogSvParams.set_vol_backbone``
-reads.
+no float64 LU).  The backbone fit returns the etas indexed by ttm, a pandas
+Series as in the JAX package (a :class:`SeriesLike` where pandas is not
+installed), that ``LogSvParams.set_vol_backbone`` reads.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from stochvolmodels_torch.models.logsv.affine import f64_scalars
 from stochvolmodels_torch.models.logsv.params import LogSvParams
-from stochvolmodels_torch.utils.funcs import SeriesLike
+from stochvolmodels_torch.utils.funcs import to_series
 
 
 def compute_analytic_vol_moments(params: LogSvParams, t: float = 1.0, n_terms: int = 4,
@@ -132,19 +134,32 @@ def compute_analytic_qvar_torch(sigma0, theta, kappa1, kappa2, beta, volvol, ttm
 
 
 def fit_model_vol_backbone_to_varswaps(log_sv_params: LogSvParams, varswap_strikes,
-                                       n_terms: int = 4, verbose: bool = False) -> SeriesLike:
+                                       n_terms: int = 4, verbose: bool = False):
     """the backbone etas with which the model reprices the market varswap
-    strikes (a Series-like: etas indexed by ttm): :func:`backbone_etas_torch`
-    on the host."""
+    strikes (etas indexed by ttm, :func:`to_series`):
+    :func:`backbone_etas_torch` on the host."""
     ttms = np.asarray(varswap_strikes.index, dtype=float)
     p = log_sv_params
-    model_eta = backbone_etas_torch(
-        p.sigma0, p.theta, p.kappa1, p.kappa2, p.beta, p.volvol, ttms=ttms,
-        varswap_strikes=torch.as_tensor(np.asarray(varswap_strikes.to_numpy(), dtype=np.float64)),
-        n_terms=n_terms).numpy()
+    args = (p.sigma0, p.theta, p.kappa1, p.kappa2, p.beta, p.volvol, ttms,
+            torch.as_tensor(np.array(varswap_strikes.to_numpy(), dtype=np.float64)), n_terms)
+    model_eta = to_series(backbone_etas_torch(*args).numpy(), ttms)
     if verbose:
-        print(f"model_eta={model_eta}")
-    return SeriesLike(values=model_eta, index=ttms)
+        market_qvar_dt, model_qvar_dt = (t.numpy() for t in _qvar_dts(*args))
+        print(f"market_qvar_dt={market_qvar_dt}\nmodel_qvar_dt={model_qvar_dt}\n"
+              f"model_eta={model_eta}")
+    return model_eta
+
+
+def _qvar_dts(sigma0, theta, kappa1, kappa2, beta, volvol, ttms: np.ndarray,
+              varswap_strikes: torch.Tensor, n_terms: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(market, model) QV over each maturity: ttm x varswap strike^2 and
+    ttm x the model's expected QV."""
+    ttms_t = torch.as_tensor(np.asarray(ttms, dtype=np.float64), device=varswap_strikes.device)
+    model_qvar_dt = torch.stack([
+        compute_analytic_qvar_torch(sigma0, theta, kappa1, kappa2, beta, volvol, ttm=float(t),
+                                    n_terms=n_terms, device=varswap_strikes.device) * float(t)
+        for t in ttms])
+    return ttms_t * torch.square(varswap_strikes), model_qvar_dt
 
 
 def backbone_etas_torch(sigma0, theta, kappa1, kappa2, beta, volvol, ttms: np.ndarray,
@@ -154,11 +169,8 @@ def backbone_etas_torch(sigma0, theta, kappa1, kappa2, beta, volvol, ttms: np.nd
     ttm 0.06), a (T,) float64 tensor on ``varswap_strikes``' device,
     differentiable in the parameters (the varswap-fit calibration's etas)."""
     ttms_t = torch.as_tensor(np.asarray(ttms, dtype=np.float64), device=varswap_strikes.device)
-    market_qvar_dt = ttms_t * torch.square(varswap_strikes)
-    model_qvar_dt = torch.stack([
-        compute_analytic_qvar_torch(sigma0, theta, kappa1, kappa2, beta, volvol, ttm=float(t),
-                                    n_terms=n_terms, device=varswap_strikes.device) * float(t)
-        for t in ttms])
+    market_qvar_dt, model_qvar_dt = _qvar_dts(sigma0, theta, kappa1, kappa2, beta, volvol, ttms,
+                                              varswap_strikes, n_terms)
     zero = market_qvar_dt.new_zeros(1)
     d_market = torch.diff(market_qvar_dt, prepend=zero)
     d_model = torch.diff(model_qvar_dt, prepend=zero)

@@ -106,11 +106,15 @@ def compute_normal_delta_to_strike(ttm, forward, delta, vol) -> torch.Tensor:
     return forward - sdev * inv_delta
 
 
-def strikes_to_delta(strikes, ivols, f0, ttm) -> torch.Tensor:
-    """the normal call delta N((F - K) / (vol sqrt(T))) of each strike."""
+def strikes_to_delta(strikes, ivols, f0, ttm):
+    """the normal call delta N((F - K) / (vol sqrt(T))) of each strike: a
+    tensor for tensor inputs, a numpy array for host inputs (a delta axis
+    that pandas takes as an index, as it takes the JAX package's array)."""
     device = _device_of(strikes, ivols, ttm)
+    host = not any(isinstance(a, torch.Tensor) for a in (strikes, ivols, f0, ttm))
     strikes, ivols, ttm = (_f64(a, device) for a in (strikes, ivols, ttm))
-    return ncdf((f0 - strikes) / ivols / torch.sqrt(ttm))
+    deltas = ncdf((f0 - strikes) / ivols / torch.sqrt(ttm))
+    return deltas.cpu().numpy() if host else deltas
 
 
 def _normal_bisection_impl(given_price, forward, strike, ttm, discfactor, is_call_f):

@@ -23,16 +23,9 @@ import torch
 
 from stochvolmodels_torch.config import encode_optiontypes
 from stochvolmodels_torch.ops import graphs
-from stochvolmodels_torch.ops.gauss import ERFCC_COEFFS, ncdf, norm_ppf, npdf
+from stochvolmodels_torch.ops.gauss import ERFCC_COEFFS, _device_of, ncdf, norm_ppf, npdf
 
 IV_LOWER, IV_UPPER, IV_TOL = 0.01, 5.0, 1e-16
-
-
-def _device_of(*xs) -> torch.device:
-    for x in xs:
-        if isinstance(x, torch.Tensor):
-            return x.device
-    return torch.device("cuda")
 
 
 def _f64(x, device: torch.device) -> torch.Tensor:

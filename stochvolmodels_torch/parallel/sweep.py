@@ -4,13 +4,13 @@ once, over a device mesh.
 
 PyTorch counterpart of ``stochvolmodels_tpu/parallel/sweep.py``.  The chains
 are independent, so the sweep is one program: the single-chain LM run of
-LogSV (``models/logsv/fast_calibration._lm_run``) or of Heston
-(``models/heston._heston_lm_run``), batched over a stacked chain axis with
-``torch.func.vmap``, in chunks of at most ``SWEEP_CHUNK`` chains.  On a CUDA
-device the whole batched fit of a chunk is one CUDA graph per (chunk size,
-panel shape, maturities, ``nb_iters``, solver configuration, device),
-captured at its first call; inside ``graphs.eager()`` it runs eagerly, with
-the same bits.
+LogSV (``models/logsv/fast_calibration._lm_residuals``) or of Heston
+(``models/heston._heston_residuals``), batched over a stacked chain axis with
+``torch.func.vmap``, in equal chunks of at most ``SWEEP_CHUNK`` chains.  On a
+CUDA device a chunk's batched fit is two CUDA graphs per (chunk size, panel
+shape, maturities, solver configuration, device): the initial LM state, and
+one iteration replayed ``nb_iters`` times, captured at the first call;
+inside ``graphs.eager()`` it runs eagerly, with the same bits.
 
 The batch axis is split over ``mesh`` (``parallel/mesh.py``; by default every
 CUDA device, or the one device the caller names): the batch is padded to a
@@ -35,7 +35,7 @@ from stochvolmodels_torch.models.heston import (
     HESTON_BOUNDS,
     HestonParams,
     _calibration_targets,
-    _heston_lm_run,
+    _heston_residuals,
 )
 from stochvolmodels_torch.models.logsv.fast_calibration import (
     LOWER,
@@ -43,11 +43,12 @@ from stochvolmodels_torch.models.logsv.fast_calibration import (
     _bounds_vector,
     _chain_targets,
     _fit_params,
-    _lm_run,
+    _lm_residuals,
 )
 from stochvolmodels_torch.models.logsv.params import LogSvParams
 from stochvolmodels_torch.models.logsv.pricer import ConstraintsType
 from stochvolmodels_torch.ops import graphs
+from stochvolmodels_torch.ops.lm import lm_init, lm_step
 from stochvolmodels_torch.parallel.mesh import (
     PathMesh,
     check_mesh,
@@ -58,13 +59,19 @@ from stochvolmodels_torch.parallel.mesh import (
 
 HESTON_LOWER = np.array([b[0] for b in HESTON_BOUNDS])
 HESTON_UPPER = np.array([b[1] for b in HESTON_BOUNDS])
-# the most chains one batched program takes.  On an H100 (NVIDIA H100 80GB
-# HBM3, 700 W) the captured 1,000-chain LogSV fit of 16 iterations at 360
-# RK4 steps/yr failed on its replay (CUDA error: misaligned address), where
-# 512 chains captured and 1,000 chains eagerly, or at 2 iterations, ran; so
-# a larger sweep runs in chunks of this size, the last one padded with
-# copies of its last chain (dropped on return), one graph for them all.
-SWEEP_CHUNK = 512
+# the most chains one batched program takes, from its peak device memory: on
+# an H100 (NVIDIA H100 80GB HBM3, 700 W) a captured LogSV sweep of the BTC
+# test chain's (4, 15) panel at 360 RK4 steps/yr peaked at 6.41 GiB for 512
+# chains, 12.47 GiB for 1,000 and 50.78 GiB for 4,096 of the card's 80
+# (scripts/repro_sweep_chunk.py); the peak grows with the panel.  A larger
+# sweep runs in ceil(n / SWEEP_CHUNK) chunks of equal size, the last one
+# padded with copies of its last chain (fewer than one a chunk, dropped on
+# return).  A chunk is captured as two graphs, the initial LM state and one
+# iteration replayed nb_iters times (~150k nodes at 1,000 LogSV chains,
+# whatever nb_iters), never as one graph of the whole fit: one of 64 chains
+# x 64 iterations (~2.64M nodes) ended its process once, for a cause not
+# found (PERF.md section 6, ROADMAP.md section 3).
+SWEEP_CHUNK = 4096
 
 
 def _sweep_mesh(mesh: Optional[PathMesh], device) -> PathMesh:
@@ -92,42 +99,66 @@ def _check_sweep(option_chains, params0, params_type):
     return chains, list(params0), ttms0
 
 
-def _run_chunks(name: str, vmapped, batched: Sequence[torch.Tensor], lower: torch.Tensor,
-                upper: torch.Tensor, key) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``vmapped`` over the rows of ``batched`` (on one device), in chunks of
-    at most SWEEP_CHUNK chains, the last padded with copies of its last
-    chain; one captured graph per chunk size and ``key`` on a card."""
+def _batched_fit(residuals_of, static):
+    """(init, step), each vmapped over the chain axis: ``init(p0,
+    *problem)`` is the LM state before the first iteration, ``step(*state,
+    *problem, lower, upper)`` the state after one more; the problem is
+    (ttms, forwards, discfactors, strikes, optioncodes, mask, market, sqrtw,
+    vol_scaler) and ``residuals_of(*problem, **static)`` its residual
+    function."""
+    init = torch.func.vmap(lambda p0, *problem: lm_init(residuals_of(*problem, **static), p0))
+    step = torch.func.vmap(
+        lambda pars, lam, best, cost, *rest: lm_step(residuals_of(*rest[:-2], **static),
+                                                     (pars, lam, best, cost), *rest[-2:]),
+        in_dims=(0,) * 13 + (None, None))
+    return init, step
+
+
+def _chunk_size(n: int) -> int:
+    """the size of each of the ceil(n / SWEEP_CHUNK) equal chunks of ``n``
+    chains."""
+    chunks = -(-n // SWEEP_CHUNK)
+    return -(-n // chunks)
+
+
+def _run_chunks(name: str, parts, nb_iters: int, batched: Sequence[torch.Tensor],
+                lower: torch.Tensor, upper: torch.Tensor, key) -> Tuple[torch.Tensor, torch.Tensor]:
+    """the batched fit ``parts`` (:func:`_batched_fit`) of the rows of
+    ``batched`` (on one device) after ``nb_iters`` iterations, (best
+    parameters, best cost), in chunks of :func:`_chunk_size`, the last
+    padded with copies of its last chain.  On a card the initial state and
+    one iteration are each a graph per chunk size and ``key``, the
+    iteration's replayed ``nb_iters`` times."""
+    init, step = parts
     n = batched[0].shape[0]
-    size = min(n, SWEEP_CHUNK)
+    size = _chunk_size(n)
     best, cost = [], []
     for start in range(0, n, size):
         part = [x[start:start + size] for x in batched]
         pad = size - part[0].shape[0]
         if pad:
             part = [torch.cat([x, x[-1:].expand(pad, *x.shape[1:])]) for x in part]
-        inputs = tuple(part) + (lower, upper)
-        if graphs.use_graph(inputs[0]):
-            out = graphs.run_captured(name, (size,) + key + (str(inputs[0].device),), vmapped,
-                                      inputs)
+        gkey = (size,) + key + (str(part[0].device),)
+        if graphs.use_graph(part[0]):
+            run = lambda tag, fn, args: graphs.run_captured(name + tag, gkey, fn, args)
         else:
-            out = vmapped(*inputs)
-        best.append(out[0])
-        cost.append(out[1])
+            run = lambda tag, fn, args: fn(*args)
+        state = run("_init", init, tuple(part))
+        for _ in range(nb_iters):
+            state = run("_step", step, tuple(state) + tuple(part[1:]) + (lower, upper))
+        best.append(state[2])
+        cost.append(state[3])
     return torch.cat(best)[:n], torch.cat(cost)[:n]
 
 
-def _run_batched(name: str, run, batched: Sequence[torch.Tensor], lower: torch.Tensor,
-                 upper: torch.Tensor, key, mesh: PathMesh) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``run(p0, ttms, forwards, discfactors, strikes, optioncodes, mask,
-    market, sqrtw, lower, upper, vol_scaler)`` vmapped over the leading axis
-    of ``batched`` (all but the bounds): the batch padded to a multiple of
-    the mesh size with copies of its last chain, each device's contiguous
-    part run by :func:`_run_chunks` on that device, all launched before the
-    results are gathered on the first device."""
-    vmapped = torch.func.vmap(
-        lambda p0, ttms, fwd, disc, strikes, codes, mask, market, sqrtw, vs, lo, hi:
-        run(p0, ttms, fwd, disc, strikes, codes, mask, market, sqrtw, lo, hi, vs),
-        in_dims=(0,) * len(batched) + (None, None))
+def _run_batched(name: str, parts, nb_iters: int, batched: Sequence[torch.Tensor],
+                 lower: torch.Tensor, upper: torch.Tensor, key,
+                 mesh: PathMesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """the batched fit ``parts`` over the leading axis of ``batched`` (p0,
+    then the problem): the batch padded to a multiple of the mesh size with
+    copies of its last chain, each device's contiguous part run by
+    :func:`_run_chunks` on that device, all launched before the results
+    are gathered on the first device."""
     n = batched[0].shape[0]
     pad = (-n) % mesh.size
     if pad:
@@ -136,16 +167,16 @@ def _run_batched(name: str, run, batched: Sequence[torch.Tensor], lower: torch.T
     outs = []
     for i, dev in enumerate(mesh.devices):
         with on_device(dev):
-            outs.append(_run_chunks(name, vmapped, [x[i * per:(i + 1) * per].to(dev)
-                                                    for x in batched],
+            outs.append(_run_chunks(name, parts, nb_iters,
+                                    [x[i * per:(i + 1) * per].to(dev) for x in batched],
                                     lower.to(dev), upper.to(dev), key))
     first = mesh.devices[0]
     return (gather([b for b, _ in outs], first)[:n], gather([c for _, c in outs], first)[:n])
 
 
 def _stack_grids(grids, markets, sqrtws):
-    """the chains' panels stacked on a leading batch axis, in ``_lm_run``'s
-    argument order (ttms .. mask, market, sqrtw)."""
+    """the chains' panels stacked on a leading batch axis, in the residual
+    functions' argument order (ttms .. mask, market, sqrtw)."""
     fields = ("ttms", "forwards", "discfactors", "strikes", "optioncodes", "mask")
     return ([torch.stack([getattr(g, f) for g in grids]) for f in fields]
             + [torch.stack(markets), torch.stack(sqrtws)])
@@ -168,10 +199,11 @@ def calibrate_logsv_lm_sweep(option_chains: Sequence[OptionChain],
     its chain alone.
 
     Chains must share ``ttms`` and the padded (n_ttm, max_strikes) layout.
-    The single-chain LM run is vmapped over the chain axis, in chunks of at
-    most SWEEP_CHUNK (512) chains; on a CUDA device the whole fit of a chunk
-    is one CUDA graph per (chunk size, panel shape, ttms, ``nb_iters``,
-    ``year_steps``, constraints type, device), captured at its first call.
+    The single-chain LM run is vmapped over the chain axis, in equal chunks
+    of at most SWEEP_CHUNK (4,096) chains; on a CUDA device a chunk's fit is two
+    CUDA graphs per (chunk size, panel shape, ttms, ``year_steps``,
+    constraints type, device), the initial state and one iteration (replayed
+    ``nb_iters`` times), captured at the first call.
     The batch splits over ``mesh`` (default: every CUDA device for
     ``device="cuda"``, else the one device named); ``use_float32`` is
     accepted for signature parity and mapped to float64.
@@ -194,11 +226,11 @@ def calibrate_logsv_lm_sweep(option_chains: Sequence[OptionChain],
     batched = ([torch.as_tensor(np.asarray(p0s, dtype=np.float64), **f64)]
                + _stack_grids(grids, markets, sqrtws)
                + [torch.as_tensor(np.asarray(scalers, dtype=np.float64), **f64)])
-    static = dict(ttms_static=ttms0, year_steps=int(year_steps), nb_iters=int(nb_iters),
+    static = dict(ttms_static=ttms0, year_steps=int(year_steps),
                   constraints_type=constraints_type)
-    key = (tuple(grids[0].strikes.shape), ttms0, static["nb_iters"], static["year_steps"],
-           constraints_type)
-    best, cost = _run_batched("logsv_lm_sweep", lambda *a: _lm_run(*a, **static), batched,
+    key = (tuple(grids[0].strikes.shape), ttms0, static["year_steps"], constraints_type)
+    parts = _batched_fit(_lm_residuals, static)
+    best, cost = _run_batched("logsv_lm_sweep", parts, int(nb_iters), batched,
                               torch.as_tensor(_bounds_vector(params_min, LOWER), **f64),
                               torch.as_tensor(_bounds_vector(params_max, UPPER), **f64), key,
                               mesh)
@@ -249,10 +281,10 @@ def calibrate_heston_lm_sweep(option_chains: Sequence[OptionChain],
     batched = ([torch.as_tensor(np.asarray(p0s, dtype=np.float64), **f64)]
                + _stack_grids(grids, markets, sqrtws)
                + [torch.as_tensor(np.asarray(scalers, dtype=np.float64), **f64)])
-    static = dict(ttms_static=ttms0, nb_iters=int(nb_iters))
-    key = (tuple(grids[0].strikes.shape), ttms0, static["nb_iters"])
-    best, cost = _run_batched("heston_lm_sweep", lambda *a: _heston_lm_run(*a, **static),
-                              batched, torch.as_tensor(HESTON_LOWER, **f64),
+    key = (tuple(grids[0].strikes.shape), ttms0)
+    parts = _batched_fit(_heston_residuals, dict(ttms_static=ttms0))
+    best, cost = _run_batched("heston_lm_sweep", parts, int(nb_iters), batched,
+                              torch.as_tensor(HESTON_LOWER, **f64),
                               torch.as_tensor(HESTON_UPPER, **f64), key, mesh)
     out = []
     for b, c in zip(best.cpu().numpy().astype(np.float64), cost.cpu().numpy()):

@@ -61,10 +61,22 @@ def update_kwargs(kwargs: Dict[Any, Any],
     return local_kwargs
 
 
+def to_series(values, index, name: Optional[str] = None):
+    """values indexed by ``index`` as the JAX package returns them: a pandas
+    Series where pandas is installed, else a :class:`SeriesLike` (the card's
+    machine has no pandas)."""
+    try:
+        import pandas as pd
+    except ImportError:
+        return SeriesLike(values=values, index=index, name=name)
+    return pd.Series(np.asarray(values, dtype=float), index=np.asarray(index, dtype=float),
+                     name=name)
+
+
 def compute_histogram_data(data: np.ndarray,
                            x_grid: np.ndarray,
                            name: str = 'Histogram'
-                           ) -> "SeriesLike":
+                           ):
     """histogram of simulated values on a fixed grid, as frequencies indexed
     by the bin edges (the first entry is ``x_grid[0]`` over the count, as in
     the reference)."""
@@ -72,7 +84,7 @@ def compute_histogram_data(data: np.ndarray,
                                         range=(x_grid[0], x_grid[-1]))
     hist_data = np.append(np.array(x_grid[0]), hist_data)
     hist_data = hist_data / len(data)
-    return SeriesLike(values=hist_data, index=bin_edges, name=name)
+    return to_series(hist_data, bin_edges, name=name)
 
 
 def find_nearest(a: np.ndarray,

@@ -120,6 +120,11 @@ with wall_and_device_time() as wall, annotate("sharded_mc"):
         kappa1=2.0, kappa2=2.0, beta=0.2, volvol=1.5)
 assert all(torch.isfinite(t).all() and t.shape == (256,) for t in sharded) and wall["wall_s"] > 0
 assert compat.LogSVPricer is svt.LogSVPricer and "stochvolmodels" not in sys.modules
+from stochvolmodels_torch.data import fetch_option_chain
+try:
+    fetch_option_chain.load_option_chain(options_data_dfs=object())
+except ImportError as exc:
+    assert "option-chain-analytics" in str(exc) and not fetch_option_chain.HAS_OCA, exc
 loaded = sorted(m for m, mod in sys.modules.items() if m.split(".")[0] in BLOCKED and mod is not None)
 assert not loaded, loaded
 print("ok", len(prices))
@@ -135,7 +140,8 @@ def test_port_imports_and_prices_without_jax_pandas_matplotlib_triton():
     the factor-HJM swaption cube, its vega, the adaptive tanh-sinh pricer on
     one expiry and the swaption chain's vegas and delta remap, and the
     mesh, profiling, plotting and compat modules (a path-sharded MC on a
-    two-device CPU mesh inside a named region), in a process that cannot
+    two-device CPU mesh inside a named region), and the chain-building
+    module with its live fetch refused, in a process that cannot
     import jax, pandas, matplotlib or triton."""
     out = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, capture_output=True,
                          text=True, timeout=300, env=dict(os.environ, PYTHONPATH=str(REPO)))

@@ -13,7 +13,9 @@ On two perturbed BTC chains (bid and ask ivols scaled by 0.95 and 1.05, as
   rtol (the LogSV sweep against the JAX package's:
   tests/test_torch_sweep_jax.py);
 * a sweep longer than ``SWEEP_CHUNK`` runs in padded chunks, each chain's
-  fit that of the unchunked sweep to 1e-10;
+  fit that of the unchunked sweep to 1e-10 (Heston) and 1e-12 (LogSV, one
+  iteration);
+* the chunks are of one size and pad fewer chains than there are chunks;
 * a ``mesh`` that is not a ``PathMesh`` raises (a mesh splits the batch:
   tests/test_torch_mesh_sweep.py); chains of other maturities raise;
   ``pad_chains_to_sweep`` buckets as the JAX package's does;
@@ -97,6 +99,35 @@ def test_a_sweep_longer_than_a_chunk_runs_in_padded_chunks(monkeypatch):
         np.testing.assert_allclose(heston_vector(a) + [ca], heston_vector(b) + [cb], rtol=1e-10)
 
 
+def test_a_logsv_sweep_in_chunks_equals_the_unchunked_sweep(monkeypatch):
+    """three chains in chunks of two (the last padded with a copy of its
+    chain), one iteration at 24 RK4 steps/yr, give each chain the fit of
+    the unchunked vmapped sweep to 1e-12."""
+    base = svt.get_btc_test_chain_data()
+    chains = [dataclasses.replace(base, bid_ivs=[s * iv for iv in base.bid_ivs],
+                                  ask_ivs=[s * iv for iv in base.ask_ivs])
+              for s in (0.9, 1.0, 1.1)]
+    p0 = svt.LogSvParams(**LOGSV_P0)
+    kw = dict(nb_iters=1, year_steps=24, device="cpu")
+    whole = tsweep.calibrate_logsv_lm_sweep(chains, p0, **kw)
+    monkeypatch.setattr(tsweep, "SWEEP_CHUNK", 2)
+    chunked = tsweep.calibrate_logsv_lm_sweep(chains, p0, **kw)
+    assert len(chunked) == 3
+    for (a, ca), (b, cb) in zip(chunked, whole):
+        np.testing.assert_allclose(logsv_vector(a) + [ca], logsv_vector(b) + [cb], rtol=1e-12)
+
+
+@pytest.mark.parametrize("n, chunk, size", [(3, 2, 2), (5, 2, 2), (4096, 4096, 4096),
+                                            (4097, 4096, 2049), (10000, 4096, 3334)])
+def test_chunks_are_equal_and_pad_less_than_a_chain_each(monkeypatch, n, chunk, size):
+    """``n`` chains run in ceil(n / SWEEP_CHUNK) chunks of one size, at most
+    SWEEP_CHUNK, padded by fewer chains than there are chunks."""
+    monkeypatch.setattr(tsweep, "SWEEP_CHUNK", chunk)
+    chunks = -(-n // chunk)
+    assert tsweep._chunk_size(n) == size <= chunk
+    assert -(-n // size) == chunks and 0 <= chunks * size - n < chunks
+
+
 def test_a_mesh_raises_and_mixed_maturities_raise():
     chains = perturbed(svt)
     with pytest.raises(TypeError):
@@ -132,10 +163,11 @@ def test_pad_chains_to_sweep_buckets_as_the_jax_package():
 def test_captured_sweep_equals_eager_bit_for_bit(cuda_device):
     chains = perturbed(svt)
     p0 = svt.LogSvParams(**LOGSV_P0)
-    kw = dict(nb_iters=1, year_steps=60, device=cuda_device)
-    replays = graphs.REPLAYS["logsv_lm_sweep"]
+    kw = dict(nb_iters=2, year_steps=60, device=cuda_device)
+    init, steps = graphs.REPLAYS["logsv_lm_sweep_init"], graphs.REPLAYS["logsv_lm_sweep_step"]
     captured = tsweep.calibrate_logsv_lm_sweep(chains, p0, **kw)
-    assert graphs.REPLAYS["logsv_lm_sweep"] == replays + 1
+    assert graphs.REPLAYS["logsv_lm_sweep_init"] == init + 1
+    assert graphs.REPLAYS["logsv_lm_sweep_step"] == steps + 2
     with graphs.eager():
         eager = tsweep.calibrate_logsv_lm_sweep(chains, p0, **kw)
     for (a, ca), (b, cb) in zip(captured, eager):
