@@ -1,0 +1,15 @@
+"""lm_host_copies (copies/fit): the program's transfer spans (``svt.upload``
+host to device, ``svt.fetch`` device to host) that start inside the traced
+fits' request spans, per fit; None where the trace holds no such span."""
+try:
+    from stochvolmodels_torch.utils.profiling import FETCH_SPAN, UPLOAD_SPAN
+except ImportError:     # a program without the spans
+    FETCH_SPAN = UPLOAD_SPAN = None
+
+
+def read(trace):
+    copies = [s for n, s, _ in trace.host if n in (UPLOAD_SPAN, FETCH_SPAN)
+              and any(rs <= s < rs + rd for _, rs, rd in trace.spans)]
+    if not copies or not trace.n_requests:
+        return None
+    return len(copies) / trace.n_requests

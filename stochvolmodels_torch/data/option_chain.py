@@ -19,6 +19,7 @@ from stochvolmodels_torch.config import encode_optiontypes
 from stochvolmodels_torch.ops import bachelier as bachel
 from stochvolmodels_torch.ops import bsm
 from stochvolmodels_torch.utils.funcs import SeriesLike, npad, to_series, unpad
+from stochvolmodels_torch.utils.profiling import to_device
 from stochvolmodels_torch.utils.var_swap import compute_var_swap_strike
 
 
@@ -127,11 +128,11 @@ class OptionChain:
         strikes = np.where(mask, strikes, self.forwards[:, None])
         codes, _ = npad([encode_optiontypes(t) for t in self.optiontypes_ttms],
                         pad_value=1)  # pad as calls
-        f64 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), device=device)
+        f64 = lambda a: to_device(np.asarray(a, dtype=np.float64), torch.float64, device)
         return ChainGrid(ttms=f64(self.ttms), forwards=f64(self.forwards),
                          discfactors=f64(self.discfactors), strikes=f64(strikes),
-                         optioncodes=torch.as_tensor(codes.astype(np.int8), device=device),
-                         mask=torch.as_tensor(mask, device=device))
+                         optioncodes=to_device(codes.astype(np.int8), torch.int8, device),
+                         mask=to_device(mask, torch.bool, device))
 
     def unpad_panel(self, panel) -> List[np.ndarray]:
         """split a (n_ttm, max_strikes) panel (tensor or array) into the ragged list."""

@@ -22,7 +22,7 @@ from stochvolmodels_torch.data.option_chain import OptionChain
 from stochvolmodels_torch.models.model_pricer import ModelParams, ModelPricer
 from stochvolmodels_torch.ops import bsm
 from stochvolmodels_torch.ops.gauss import npdf
-from stochvolmodels_torch.utils.funcs import timer, to_flat_np_array
+from stochvolmodels_torch.utils.funcs import to_flat_np_array
 
 
 @dataclass
@@ -146,7 +146,6 @@ class GmmPricer(ModelPricer):
     def model_mc_price_chain(self, option_chain, params, **kwargs):
         raise NotImplementedError
 
-    @timer
     def calibrate_model_params_to_chain_slice(self,
                                               option_chain: OptionChain,
                                               params0: Optional[GmmParams] = None,
@@ -213,7 +212,6 @@ class GmmPricer(ModelPricer):
         fit_params.sort_by_mus()
         return fit_params
 
-    @timer
     def calibrate_model_params_to_chain(self, option_chain: OptionChain,
                                         is_vega_weighted: bool = True,
                                         is_unit_ttm_vega: bool = False,

@@ -34,7 +34,7 @@ from stochvolmodels_torch.ops.cuda_mc import engine_setup, simulate_hawkesjd_ter
 from stochvolmodels_torch.ops.lm import lm_init, lm_step
 from stochvolmodels_torch.ops.payoffs import compute_mc_vars_payoff
 from stochvolmodels_torch.ops.random import generator_from_seed
-from stochvolmodels_torch.utils.funcs import set_time_grid, timer, to_flat_np_array
+from stochvolmodels_torch.utils.funcs import set_time_grid, to_flat_np_array
 
 MAX_PHI = 500  # transform grid size
 MC_STEPS_PER_YEAR = 5 * 360  # small dt for large intensities
@@ -650,7 +650,6 @@ class HawkesJDPricer(ModelPricer):
             optiontype=grid.optioncodes)
         return option_chain.unpad_panel(torch.where(grid.mask, vols, torch.nan))
 
-    @timer
     def model_mc_price_chain(self, option_chain: OptionChain, params: HawkesJDParams,
                              nb_path: int = 100000, seed: Optional[int] = None,
                              variable_type: VariableType = VariableType.LOG_RETURN,
@@ -665,7 +664,6 @@ class HawkesJDPricer(ModelPricer):
             device=self.device, lambda_p=params.lambda_p, lambda_m=params.lambda_m,
             **params.sim_params())
 
-    @timer
     def simulate_terminal_values(self, params: HawkesJDParams, ttm: float = 1.0,
                                  nb_path: int = 100000, seed: Optional[int] = None, **kwargs
                                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -679,7 +677,6 @@ class HawkesJDPricer(ModelPricer):
             **params.sim_params())
         return x.cpu().numpy(), lam_p.cpu().numpy(), lam_m.cpu().numpy()
 
-    @timer
     def calibrate_model_params_to_chain(self,
                                         option_chain: OptionChain,
                                         params0: HawkesJDParams,
@@ -760,7 +757,6 @@ class HawkesJDPricer(ModelPricer):
 
         return objective, jump_cond, p0, bounds, unpack_pars
 
-    @timer
     def calibrate_risk_premia_gamma_to_chain(self,
                                              option_chain: OptionChain,
                                              params0: HawkesJDParams,

@@ -36,7 +36,15 @@ from stochvolmodels_torch.ops.lm import lm_minimize
 from stochvolmodels_torch.ops.payoffs import compute_mc_vars_payoff
 from stochvolmodels_torch.ops.random import (DEFAULT_SEED, antithetic_step_normals,
                                              generator_from_seed, step_normals)
-from stochvolmodels_torch.utils.funcs import set_time_grid, timer
+from stochvolmodels_torch.utils.funcs import set_time_grid
+from stochvolmodels_torch.utils.profiling import (
+    LM_FIT_SPAN,
+    LM_PREPARE_SPAN,
+    MC_CHAIN_SPAN,
+    annotate,
+    to_device,
+    to_host,
+)
 
 
 @dataclass
@@ -441,6 +449,7 @@ class HestonPricer(ModelPricer):
             optiontype=grid.optioncodes)
         return option_chain.unpad_panel(torch.where(grid.mask, vols, torch.nan))
 
+    @annotate(MC_CHAIN_SPAN)
     def model_mc_price_chain(self, option_chain: OptionChain, params: HestonParams,
                              nb_path: int = 100000,
                              variable_type: VariableType = VariableType.LOG_RETURN,
@@ -459,7 +468,6 @@ class HestonPricer(ModelPricer):
             antithetic=kwargs.get("antithetic", False),
             qmc_replicates=kwargs.get("qmc_replicates", 8))
 
-    @timer
     def simulate_terminal_values(self, params: HestonParams, ttm: float = 1.0,
                                  nb_path: int = 100000, seed: Optional[int] = None, **kwargs
                                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -472,7 +480,6 @@ class HestonPricer(ModelPricer):
             kappa=params.kappa, rho=params.rho, volvol=params.volvol)
         return x.cpu().numpy(), var.cpu().numpy(), qvar.cpu().numpy()
 
-    @timer
     def calibrate_model_params_to_chain(self,
                                         option_chain: OptionChain,
                                         params0: Optional[HestonParams] = None,
@@ -561,17 +568,16 @@ def _calibration_targets(option_chain: OptionChain, p0: np.ndarray, is_vega_weig
     slice-normalised BSM vegas at the mid vols, or ones; the transform grid
     is frozen at min(0.3, sqrt(p0[0] ttm0))."""
     grid = option_chain.to_grid(device=device)
-    mask = grid.mask.cpu().numpy()
+    mask = to_host(grid.mask)
     market_vols = _pad_panel(option_chain.get_mid_vols(), grid)
     if is_vega_weighted:
         vegas_ttms = option_chain.get_chain_vegas(is_unit_ttm_vega=is_unit_ttm_vega)
         weights = _pad_panel([v / np.sum(v) for v in vegas_ttms], grid)
     else:
         weights = np.ones_like(market_vols)
-    f64 = dict(dtype=torch.float64, device=device)
     vol_scaler = float(np.minimum(0.3, np.sqrt(p0[0] * option_chain.ttms[0])))
-    return (grid, torch.as_tensor(np.where(mask, market_vols, 0.0), **f64),
-            torch.as_tensor(np.where(mask, weights, 0.0), **f64), vol_scaler)
+    return (grid, to_device(np.where(mask, market_vols, 0.0), torch.float64, device),
+            to_device(np.where(mask, weights, 0.0), torch.float64, device), vol_scaler)
 
 
 def _heston_calibration_objective(pars: torch.Tensor, grid: ChainGrid,
@@ -639,26 +645,30 @@ def calibrate_heston_lm(option_chain: OptionChain,
     fit's bounds, the transform grid frozen at min(0.3, sqrt(v0 ttm0)).  On
     a CUDA device the whole fit is one CUDA graph per (panel shape,
     ``nb_iters``, maturities), captured at its first call; inside
-    ``graphs.eager()`` it runs eagerly, with the same bits."""
-    p0 = params0.to_array()
-    grid, market, weights, vol_scaler = _calibration_targets(
-        option_chain, p0, is_vega_weighted, is_unit_ttm_vega, device)
-    f64 = dict(dtype=torch.float64, device=device)
-    inputs = (torch.as_tensor(p0, **f64), grid.ttms, grid.forwards, grid.discfactors,
-              grid.strikes, grid.optioncodes, grid.mask, market, torch.sqrt(weights),
-              torch.as_tensor(np.array([b[0] for b in HESTON_BOUNDS]), **f64),
-              torch.as_tensor(np.array([b[1] for b in HESTON_BOUNDS]), **f64),
-              torch.tensor(vol_scaler, **f64))
-    static = dict(ttms_static=tuple(float(t) for t in option_chain.ttms), nb_iters=int(nb_iters))
-    run = lambda *a: _heston_lm_run(*a, **static)
-    if graphs.use_graph(inputs[0]):
-        key = (tuple(grid.strikes.shape), static["nb_iters"], static["ttms_static"],
-               str(inputs[0].device))
-        best, cost = graphs.run_captured("heston_lm", key, run, inputs)
-    else:
-        best, cost = run(*inputs)
-    v0, theta, kappa, rho, volvol = best.cpu().numpy().astype(np.float64)
-    return HestonParams(v0=v0, theta=theta, kappa=kappa, rho=rho, volvol=volvol), float(cost)
+    ``graphs.eager()`` it runs eagerly, with the same bits.  Spans: the fit
+    is one ``LM_FIT_SPAN``, its inputs one ``LM_PREPARE_SPAN``."""
+    with annotate(LM_FIT_SPAN):
+        with annotate(LM_PREPARE_SPAN):
+            p0 = params0.to_array()
+            grid, market, weights, vol_scaler = _calibration_targets(
+                option_chain, p0, is_vega_weighted, is_unit_ttm_vega, device)
+            up = lambda a: to_device(a, torch.float64, device)
+            inputs = (up(p0), grid.ttms, grid.forwards, grid.discfactors,
+                      grid.strikes, grid.optioncodes, grid.mask, market, torch.sqrt(weights),
+                      up(np.array([b[0] for b in HESTON_BOUNDS])),
+                      up(np.array([b[1] for b in HESTON_BOUNDS])), up(vol_scaler))
+        static = dict(ttms_static=tuple(float(t) for t in option_chain.ttms),
+                      nb_iters=int(nb_iters))
+        run = lambda *a: _heston_lm_run(*a, **static)
+        if graphs.use_graph(inputs[0]):
+            key = (tuple(grid.strikes.shape), static["nb_iters"], static["ttms_static"],
+                   str(inputs[0].device))
+            best, cost = graphs.run_captured("heston_lm", key, run, inputs)
+        else:
+            best, cost = run(*inputs)
+        v0, theta, kappa, rho, volvol = to_host(best).astype(np.float64)
+        return (HestonParams(v0=v0, theta=theta, kappa=kappa, rho=rho, volvol=volvol),
+                float(to_host(cost)))
 
 
 def v0_implied(v0: float, volvol: float, ttm: float) -> float:

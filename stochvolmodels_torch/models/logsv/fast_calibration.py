@@ -37,6 +37,13 @@ from stochvolmodels_torch.models.logsv.pricer import (
 )
 from stochvolmodels_torch.ops import bsm, graphs
 from stochvolmodels_torch.ops.lm import lm_minimize
+from stochvolmodels_torch.utils.profiling import (
+    LM_FIT_SPAN,
+    LM_PREPARE_SPAN,
+    annotate,
+    to_device,
+    to_host,
+)
 
 # optimizer vector: [sigma0, theta, kappa1, beta, volvol] (PARAMS5 layout)
 LOWER = np.array([0.1, 0.1, 0.25, -3.0, 0.2])
@@ -64,7 +71,7 @@ def _chain_targets(option_chain: OptionChain, is_vega_weighted: bool, device
         weights_panel = _pad_panel(vegas, grid)
     else:
         weights_panel = np.ones_like(market_panel)
-    mask = grid.mask.cpu().numpy()
+    mask = to_host(grid.mask)
     return (vol_scaler, grid, np.where(mask, market_panel, 0.0),
             np.where(mask, weights_panel, 0.0))
 
@@ -104,8 +111,9 @@ def _model_vols(pars: torch.Tensor, grid: ChainGrid, vol_scaler, ttms_static, ye
     return vols, (theta, kappa1, kappa2, beta, volvol)
 
 
-def _fit_params(best: torch.Tensor) -> LogSvParams:
-    best = best.detach().cpu().numpy().astype(np.float64)
+def _fit_params(best) -> LogSvParams:
+    """LogSvParams from a PARAMS5 vector on the host (array or CPU tensor)."""
+    best = np.asarray(best, dtype=np.float64)
     return LogSvParams(sigma0=best[0], theta=best[1], kappa1=best[2],
                        kappa2=best[2] / best[1], beta=best[3], volvol=best[4])
 
@@ -163,29 +171,32 @@ def calibrate_logsv_lm_on_device(option_chain: OptionChain,
     of each (chain panel shape, ``nb_iters``, ``year_steps``, constraints
     type, maturities) and replayed after; inside ``graphs.eager()`` it runs
     eagerly, with the same bits.  ``use_float32`` is accepted for signature
-    parity and mapped to float64, the card's native precision.
+    parity and mapped to float64, the card's native precision.  Spans: the
+    fit is one ``LM_FIT_SPAN``, its inputs one ``LM_PREPARE_SPAN``.
     """
     del use_float32
-    f64 = dict(dtype=torch.float64, device=device)
-    vol_scaler, grid, market, weights = _chain_targets(option_chain, is_vega_weighted, device)
-    ttms_static = tuple(float(t) for t in option_chain.ttms)
-    inputs = (torch.tensor([params0.sigma0, params0.theta, params0.kappa1, params0.beta,
-                            params0.volvol], **f64),
-              grid.ttms, grid.forwards, grid.discfactors, grid.strikes, grid.optioncodes,
-              grid.mask, torch.as_tensor(market, **f64), torch.as_tensor(np.sqrt(weights), **f64),
-              torch.as_tensor(_bounds_vector(params_min, LOWER), **f64),
-              torch.as_tensor(_bounds_vector(params_max, UPPER), **f64),
-              torch.tensor(vol_scaler, **f64))
-    static = dict(ttms_static=ttms_static, year_steps=int(year_steps), nb_iters=int(nb_iters),
-                  constraints_type=constraints_type)
-    if graphs.use_graph(inputs[0]):
-        key = (tuple(grid.strikes.shape), static["nb_iters"], static["year_steps"],
-               constraints_type, ttms_static, str(inputs[0].device))
-        best, best_cost = graphs.run_captured("lm", key, lambda *a: _lm_run(*a, **static),
-                                              inputs)
-    else:
-        best, best_cost = _lm_run(*inputs, **static)
-    return _fit_params(best), float(best_cost)
+    with annotate(LM_FIT_SPAN):
+        with annotate(LM_PREPARE_SPAN):
+            vol_scaler, grid, market, weights = _chain_targets(option_chain, is_vega_weighted,
+                                                               device)
+            ttms_static = tuple(float(t) for t in option_chain.ttms)
+            up = lambda a: to_device(a, torch.float64, device)
+            inputs = (up(np.array([params0.sigma0, params0.theta, params0.kappa1, params0.beta,
+                                   params0.volvol], dtype=np.float64)),
+                      grid.ttms, grid.forwards, grid.discfactors, grid.strikes, grid.optioncodes,
+                      grid.mask, up(market), up(np.sqrt(weights)),
+                      up(_bounds_vector(params_min, LOWER)), up(_bounds_vector(params_max, UPPER)),
+                      up(vol_scaler))
+        static = dict(ttms_static=ttms_static, year_steps=int(year_steps),
+                      nb_iters=int(nb_iters), constraints_type=constraints_type)
+        if graphs.use_graph(inputs[0]):
+            key = (tuple(grid.strikes.shape), static["nb_iters"], static["year_steps"],
+                   constraints_type, ttms_static, str(inputs[0].device))
+            best, best_cost = graphs.run_captured("lm", key, lambda *a: _lm_run(*a, **static),
+                                                  inputs)
+        else:
+            best, best_cost = _lm_run(*inputs, **static)
+        return _fit_params(to_host(best)), float(to_host(best_cost))
 
 
 def calibrate_logsv_on_device(option_chain: OptionChain,
@@ -252,4 +263,4 @@ def calibrate_logsv_on_device(option_chain: OptionChain,
         final_loss = raw_loss(pars)
     better = final_loss < best_loss
     best = torch.where(better, pars, best_pars)
-    return _fit_params(best), float(torch.where(better, final_loss, best_loss))
+    return _fit_params(to_host(best)), float(torch.where(better, final_loss, best_loss))

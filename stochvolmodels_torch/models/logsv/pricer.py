@@ -50,7 +50,8 @@ from stochvolmodels_torch.ops.random import (
     generator_from_seed,
     step_normals,
 )
-from stochvolmodels_torch.utils.funcs import set_time_grid, timer
+from stochvolmodels_torch.utils.funcs import set_time_grid
+from stochvolmodels_torch.utils.profiling import MC_CHAIN_SPAN, annotate
 
 class LogsvModelCalibrationType(Enum):
     """which parameters the calibration solves for."""
@@ -952,7 +953,7 @@ class LogSVPricer(ModelPricer):
             optiontype=grid.optioncodes)
         return option_chain.unpad_panel(vols)
 
-    @timer
+    @annotate(MC_CHAIN_SPAN)
     def model_mc_price_chain(self, option_chain: OptionChain, params: LogSvParams,
                              is_spot_measure: bool = True,
                              variable_type: VariableType = VariableType.LOG_RETURN,
@@ -1001,7 +1002,6 @@ class LogSVPricer(ModelPricer):
             antithetic=kwargs.get("antithetic", False),
             qmc_replicates=kwargs.get("qmc_replicates", 8))
 
-    @timer
     def simulate_vol_paths(self, params: LogSvParams, ttm: float = 1.0, nb_path: int = 100000,
                            is_spot_measure: bool = True, nb_steps: Optional[int] = None,
                            year_days: int = 360, seed: Optional[int] = None,
@@ -1016,7 +1016,6 @@ class LogSVPricer(ModelPricer):
                                   is_spot_measure=is_spot_measure, nb_steps_per_year=nb_steps,
                                   seed=seed, device=self.device, **kwargs)
 
-    @timer
     def simulate_terminal_values(self, params: LogSvParams, ttm: float = 1.0,
                                  nb_path: int = 100000, is_spot_measure: bool = True,
                                  seed: Optional[int] = None,
@@ -1032,7 +1031,6 @@ class LogSVPricer(ModelPricer):
             volvol=params.volvol, is_spot_measure=is_spot_measure)
         return x.cpu().numpy(), sigma.cpu().numpy(), qvar.cpu().numpy()
 
-    @timer
     def logsv_pdfs(self, params: LogSvParams, ttm: float, space_grid: np.ndarray,
                    is_spot_measure: bool = True,
                    expansion_order: ExpansionOrder = ExpansionOrder.SECOND,
@@ -1049,7 +1047,6 @@ class LogSVPricer(ModelPricer):
         atm0 = option_chain.get_chain_atm_vols()[0]
         return set_vol_scaler(sigma0=atm0, ttm=option_chain.ttms[0])
 
-    @timer
     def calibrate_model_params_to_chain(self,
                                         option_chain: OptionChain,
                                         params0: LogSvParams,

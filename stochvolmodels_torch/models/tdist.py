@@ -22,7 +22,6 @@ from stochvolmodels_torch.models.gmm import _slice_targets, _torch_objective, _v
 from stochvolmodels_torch.models.model_pricer import ModelParams, ModelPricer
 from stochvolmodels_torch.ops import bsm
 from stochvolmodels_torch.ops import tdist as td
-from stochvolmodels_torch.utils.funcs import timer
 
 
 @dataclass
@@ -65,7 +64,6 @@ class TdistPricer(ModelPricer):
     def model_mc_price_chain(self, option_chain, params, **kwargs):
         raise NotImplementedError
 
-    @timer
     def calibrate_model_params_to_chain_slice(self,
                                               option_chain: OptionChain,
                                               params0: Optional[TdistParams] = None,
@@ -112,7 +110,6 @@ class TdistPricer(ModelPricer):
                                            nu=nu, ttm=ttm))
         return TdistParams(vol=vol, nu=nu, drift=drift, ttm=ttm)
 
-    @timer
     def calibrate_model_params_to_chain(self, option_chain: OptionChain,
                                         is_vega_weighted: bool = True,
                                         is_unit_ttm_vega: bool = False,

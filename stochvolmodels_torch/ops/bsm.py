@@ -24,6 +24,7 @@ import torch
 from stochvolmodels_torch.config import encode_optiontypes
 from stochvolmodels_torch.ops import graphs
 from stochvolmodels_torch.ops.gauss import ERFCC_COEFFS, _device_of, ncdf, norm_ppf, npdf
+from stochvolmodels_torch.utils.profiling import to_device
 
 IV_LOWER, IV_UPPER, IV_TOL = 0.01, 5.0, 1e-16
 
@@ -41,7 +42,7 @@ def as_option_codes(optiontypes, device: torch.device) -> torch.Tensor:
     arr = np.asarray(optiontypes)
     if arr.dtype.kind in ('U', 'S', 'O'):
         arr = encode_optiontypes(arr)
-    return torch.as_tensor(arr.astype(np.int8), device=device)
+    return to_device(arr.astype(np.int8), torch.int8, device)
 
 
 def _is_call(optiontypes, device: torch.device) -> torch.Tensor:

@@ -38,6 +38,7 @@ import torch
 
 from stochvolmodels_torch.ops import _build
 from stochvolmodels_torch.utils.funcs import set_time_grid
+from stochvolmodels_torch.utils.profiling import MC_PATH_SPAN, annotate
 
 LANES = 128
 BLOCK_PATHS = 256 * LANES   # paths per TPU program: one (256, 128) block
@@ -359,11 +360,13 @@ def simulate_logsv_terminal_kernel(seed: int, x0: torch.Tensor, sigma0: torch.Te
                                    qvar0: torch.Tensor, **kwargs
                                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """the chain pricer's path loop: CUDA tensors run the CUDA kernel, CPU
-    tensors its plain version.  Nothing else dispatches."""
-    if x0.device.type == "cuda":
-        return simulate_logsv_terminal_cuda(seed, x0, sigma0, qvar0, **kwargs)
-    if x0.device.type == "cpu":
-        return simulate_logsv_terminal_torch(seed, x0, sigma0, qvar0, **kwargs)
+    tensors its plain version.  Nothing else dispatches.  One
+    ``MC_PATH_SPAN``."""
+    with annotate(MC_PATH_SPAN):
+        if x0.device.type == "cuda":
+            return simulate_logsv_terminal_cuda(seed, x0, sigma0, qvar0, **kwargs)
+        if x0.device.type == "cpu":
+            return simulate_logsv_terminal_torch(seed, x0, sigma0, qvar0, **kwargs)
     raise ValueError(f"no LogSV MC kernel for device {x0.device}")
 
 
@@ -456,11 +459,13 @@ def simulate_heston_terminal_kernel(seed: int, x0: torch.Tensor, var0: torch.Ten
                                     qvar0: torch.Tensor, **kwargs
                                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """the Heston chain pricer's path loop: CUDA tensors run the CUDA kernel,
-    CPU tensors its plain version.  Nothing else dispatches."""
-    if x0.device.type == "cuda":
-        return simulate_heston_terminal_cuda(seed, x0, var0, qvar0, **kwargs)
-    if x0.device.type == "cpu":
-        return simulate_heston_terminal_torch(seed, x0, var0, qvar0, **kwargs)
+    CPU tensors its plain version.  Nothing else dispatches.  One
+    ``MC_PATH_SPAN``."""
+    with annotate(MC_PATH_SPAN):
+        if x0.device.type == "cuda":
+            return simulate_heston_terminal_cuda(seed, x0, var0, qvar0, **kwargs)
+        if x0.device.type == "cpu":
+            return simulate_heston_terminal_torch(seed, x0, var0, qvar0, **kwargs)
     raise ValueError(f"no Heston MC kernel for device {x0.device}")
 
 

@@ -28,14 +28,21 @@ program) takes its kernels.  ``eager()``
 switches capture off for a block, explicitly, so that a caller can time the
 eager call or hold the two against each other.  On the CPU nothing is
 captured.
+
+Each capture's two phases are timed (``WARMUP_S``, ``RECORD_S``); a replay
+and a capture are the spans ``GRAPH_REPLAY_SPAN`` and ``GRAPH_CAPTURE_SPAN``
+of ``utils/profiling.py``, seen where a profiler runs.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import time
 from typing import Callable, Hashable, Sequence, Tuple
 
 import torch
+
+from stochvolmodels_torch.utils.profiling import GRAPH_CAPTURE_SPAN, GRAPH_REPLAY_SPAN, annotate
 
 # at most this many graphs are kept; the least recently used one goes first
 MAX_GRAPHS = 16
@@ -43,6 +50,11 @@ MAX_GRAPHS = 16
 REPLAYS: collections.Counter = collections.Counter()
 # graph captures by the name of the call
 CAPTURES: collections.Counter = collections.Counter()
+# seconds of the captures by the name of the call: the eager warm-up on a
+# side stream, to the end of its device work, and the stream capture with
+# the graph's instantiation
+WARMUP_S: collections.Counter = collections.Counter()
+RECORD_S: collections.Counter = collections.Counter()
 
 _capture_enabled = True
 _graphs: "collections.OrderedDict[Hashable, _Captured]" = collections.OrderedDict()
@@ -75,9 +87,10 @@ def use_graph(tensor: torch.Tensor) -> bool:
 class _Captured:
     """one captured call of ``fn`` on static copies of its inputs."""
 
-    def __init__(self, fn: Callable[..., Tuple[torch.Tensor, ...]],
+    def __init__(self, name: str, fn: Callable[..., Tuple[torch.Tensor, ...]],
                  inputs: Sequence[torch.Tensor]):
         device = inputs[0].device
+        t0 = time.perf_counter()
         self.static_inputs = [torch.empty(x.shape, dtype=x.dtype, device=x.device)
                               for x in inputs]
         for s, x in zip(self.static_inputs, inputs):
@@ -90,17 +103,23 @@ class _Captured:
             with torch.cuda.stream(side):
                 fn(*self.static_inputs)
             torch.cuda.current_stream().wait_stream(side)
+            # the capture below synchronises the card first anyway
+            side.synchronize()
+            t1 = time.perf_counter()
             if device not in _capture_streams:
                 _capture_streams[device] = torch.cuda.Stream(device=device)
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph, stream=_capture_streams[device]):
                 self.static_outputs = fn(*self.static_inputs)
+        WARMUP_S[name] += t1 - t0
+        RECORD_S[name] += time.perf_counter() - t1
 
     def __call__(self, inputs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-        for s, x in zip(self.static_inputs, inputs):
-            s.copy_(x)
-        self.graph.replay()
-        return tuple(o.clone() for o in self.static_outputs)
+        with annotate(GRAPH_REPLAY_SPAN):
+            for s, x in zip(self.static_inputs, inputs):
+                s.copy_(x)
+            self.graph.replay()
+            return tuple(o.clone() for o in self.static_outputs)
 
 
 def run_captured(name: str, key: Hashable, fn: Callable[..., Tuple[torch.Tensor, ...]],
@@ -123,7 +142,8 @@ def run_captured(name: str, key: Hashable, fn: Callable[..., Tuple[torch.Tensor,
         while len(_graphs) >= MAX_GRAPHS:
             _graphs.popitem(last=False)
         try:
-            entry = _Captured(fn, inputs)
+            with annotate(GRAPH_CAPTURE_SPAN):
+                entry = _Captured(name, fn, inputs)
         except RuntimeError as exc:
             raise RuntimeError(f"{name}: CUDA graph capture failed: {exc}") from exc
         _graphs[full_key] = entry

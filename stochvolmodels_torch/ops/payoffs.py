@@ -26,6 +26,7 @@ import torch
 
 from stochvolmodels_torch.config import VariableType
 from stochvolmodels_torch.ops.bsm import as_option_codes
+from stochvolmodels_torch.utils.profiling import MC_PAYOFF_SPAN, annotate, to_device, to_host
 
 
 def nanstd(a: torch.Tensor, dim: int, ddof: int = 0) -> torch.Tensor:
@@ -68,6 +69,7 @@ def _payoffs(u: torch.Tensor, spots: torch.Tensor, strikes: torch.Tensor,
     return torch.where(is_inverse, payoff / spots, payoff)
 
 
+@annotate(MC_PAYOFF_SPAN)
 def mc_vars_payoff(x0: torch.Tensor,
                    qvar0: torch.Tensor,
                    ttm,
@@ -131,13 +133,15 @@ def compute_mc_vars_payoff(x0: torch.Tensor,
 
     ``x0``/``qvar0``: terminal log-return and quadratic variance paths
     (nb_path,); ``sigma0`` is accepted for signature symmetry and unused.
-    The reductions are those of :func:`mc_vars_payoff`.
+    The reductions are those of :func:`mc_vars_payoff`.  Strikes and string
+    option types go up and the results come back through
+    ``utils/profiling``'s transfers: four a slice.
     """
     del sigma0
     device = x0.device
-    strikes = torch.as_tensor(np.asarray(strikes_ttm, dtype=np.float64), device=device)
+    strikes = to_device(np.asarray(strikes_ttm, dtype=np.float64), torch.float64, device)
     codes = as_option_codes(optiontypes_ttm, device)
     prices, stds = mc_vars_payoff(x0, qvar0, float(ttm), float(forward), strikes, codes,
                                   discfactor=float(discfactor), variable_type=variable_type,
                                   antithetic=antithetic, nb_replicates=nb_replicates)
-    return prices.detach().cpu().numpy(), stds.detach().cpu().numpy()
+    return to_host(prices), to_host(stds)

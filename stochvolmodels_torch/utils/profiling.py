@@ -1,14 +1,23 @@
 """
-Profiling: a device trace around a block, named regions in it, and a wall
-clock that waits for the card.
+Profiling: a device trace around a block, the program's named spans in it,
+its host-device transfers, and a wall clock that waits for the card.
 
 PyTorch counterpart of ``stochvolmodels_tpu/utils/profiling.py``: the trace
 is ``torch.profiler``'s (host operators, plus the CUDA kernels where a card
-is present), written as a Chrome/Perfetto JSON file; a named region is a
-``torch.profiler.record_function`` range, plus an NVTX range on a card, so
-that it shows in the trace and in any NVTX-aware tool.  The pricers carry
-no annotations of their own, as the JAX package's do not: the caller wraps
-what it wants to see.
+is present), written as a Chrome/Perfetto JSON file.  A span
+(:class:`annotate`) is a profiler range on the host's timeline, plus an
+NVTX range on a card.  It records only while a profiler runs
+(``torch.profiler.profile``, or ``torch.autograd.profiler.emit_nvtx``) and
+costs a flag read otherwise.  The profiler keeps the spans on the clock of
+its device records, so a reader of the trace finds each layer's boundaries
+beside the kernels and copies issued inside them.
+
+The program's spans are the ``*_SPAN`` names below, at its layer
+boundaries.  None sits inside a function that ``ops/graphs.py`` captures:
+such a span would record once, at the capture, and never at a replay.
+Every host-to-device and device-to-host transfer of the MC chain call and
+of the LM fits goes through :func:`to_device` and :func:`to_host`, one span
+each, so that counting the spans counts the transfers.
 """
 from __future__ import annotations
 
@@ -23,6 +32,26 @@ import torch
 
 TRACE_FILE = "trace.json"
 
+# one MC chain call (LogSVPricer / HestonPricer .model_mc_price_chain)
+MC_CHAIN_SPAN = "svt.mc_chain"
+# a slice's path-kernel launch (ops/cuda_mc.py simulate_*_terminal_kernel)
+MC_PATH_SPAN = "svt.mc.path"
+# a slice's payoff panels and reductions, as enqueued (ops/payoffs.py mc_vars_payoff)
+MC_PAYOFF_SPAN = "svt.mc.payoff"
+# one LM fit (calibrate_logsv_lm_on_device, calibrate_heston_lm)
+LM_FIT_SPAN = "svt.lm_fit"
+# a fit from its entry to its graph (or eager) run: vol scaler, chain
+# lowering, target panels, host vegas and the input uploads
+LM_PREPARE_SPAN = "svt.lm.prepare"
+# a captured graph's static-input copies, replay and output clones
+GRAPH_REPLAY_SPAN = "svt.graph.replay"
+# a graph's warm-up and capture, at the first call of its key
+GRAPH_CAPTURE_SPAN = "svt.graph.capture"
+# one host-to-device transfer (to_device)
+UPLOAD_SPAN = "svt.upload"
+# one device-to-host transfer (to_host)
+FETCH_SPAN = "svt.fetch"
+
 
 @contextlib.contextmanager
 def device_trace(trace_dir: Optional[str] = None,
@@ -34,10 +63,12 @@ def device_trace(trace_dir: Optional[str] = None,
     ...     pricer.price_chain(option_chain=chain, params=params)
 
     Open the file in ui.perfetto.dev or chrome://tracing.  CPU activity is
-    always recorded, CUDA activity where a card is present.  ``trace_dir``
-    defaults to a new temporary directory; the directory is what the block
-    receives.  ``create_perfetto_link`` is accepted for the JAX package's
-    signature (there is no server to link to).
+    always recorded, CUDA activity where a card is present; the card is
+    synchronised before the profiler starts, so that work queued before the
+    block does not straddle its start.  ``trace_dir`` defaults to a new
+    temporary directory; the directory is what the block receives.
+    ``create_perfetto_link`` is accepted for the JAX package's signature
+    (there is no server to link to).
     """
     del create_perfetto_link
     from torch.profiler import ProfilerActivity, profile
@@ -47,6 +78,7 @@ def device_trace(trace_dir: Optional[str] = None,
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
     with profile(activities=activities) as prof:
         yield trace_dir
         if torch.cuda.is_available():
@@ -55,13 +87,15 @@ def device_trace(trace_dir: Optional[str] = None,
 
 
 class annotate:
-    """a named region of the trace; a context manager or a decorator.
+    """a named span of the trace; a context manager or a decorator.
 
     >>> with annotate("fourier_inversion"):
     ...     prices = vanilla_prices_with_mgf_grid(...)
 
-    Opens ``torch.profiler.record_function(name)`` and, on a card, an NVTX
-    range of the same name.
+    While a profiler runs, opens a profiler range of the name (a host-side
+    record function: the device's records stay the kernels' and copies'
+    own) and, on a card, an NVTX range of the same name.  With no profiler
+    running it records nothing.
     """
 
     def __init__(self, name: str):
@@ -69,24 +103,39 @@ class annotate:
         self._stack: Optional[contextlib.ExitStack] = None
 
     def __enter__(self):
-        stack = contextlib.ExitStack()
-        stack.enter_context(torch.profiler.record_function(self.name))
-        if torch.cuda.is_available():
-            stack.enter_context(torch.cuda.nvtx.range(self.name))
-        self._stack = stack
+        if torch.autograd._profiler_enabled():
+            stack = contextlib.ExitStack()
+            stack.enter_context(torch._C._profiler._RecordFunctionFast(self.name))
+            if torch.cuda.is_available():
+                stack.enter_context(torch.cuda.nvtx.range(self.name))
+            self._stack = stack
         return self
 
     def __exit__(self, *exc):
         stack, self._stack = self._stack, None
-        return stack.__exit__(*exc)
+        return stack.__exit__(*exc) if stack is not None else False
 
     def __call__(self, fn):
-        # a fresh region per call, so that nested and recursive calls each get their own
+        # a fresh span per call, so that nested and recursive calls each get their own
         @functools.wraps(fn)
         def wrapped(*args, **kwargs):
             with annotate(self.name):
                 return fn(*args, **kwargs)
         return wrapped
+
+
+def to_device(array, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.as_tensor(array, dtype=dtype, device=device)`` in an
+    ``UPLOAD_SPAN``: the program's host-to-device transfers."""
+    with annotate(UPLOAD_SPAN):
+        return torch.as_tensor(array, dtype=dtype, device=device)
+
+
+def to_host(tensor: torch.Tensor):
+    """the tensor as a numpy array on the host, in a ``FETCH_SPAN``: the
+    program's device-to-host transfers (each waits for the card)."""
+    with annotate(FETCH_SPAN):
+        return tensor.detach().cpu().numpy()
 
 
 @contextlib.contextmanager
