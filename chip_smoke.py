@@ -127,7 +127,14 @@ THROUGHPUT_TTM = 1.0      # 361 Euler steps at 360 steps/yr
 # Euler bias moves the far-OTM call ivols by up to 0.014 from the analytic
 # ones; at 360 steps/yr the largest gap is 0.007 (plain version, 2^20 paths).
 MC_STEPS_PER_YEAR = 360
-KERNELS = ("logsv_mc", "heston_mc", "rough_mc", "hawkes_mc", "logsv_variants")
+PATH_KERNELS = ("logsv_mc", "heston_mc", "rough_mc", "hawkes_mc", "logsv_variants")
+# the MC payoff reductions (csrc/mc_payoff.cu) beside the path loops
+KERNELS = PATH_KERNELS + ("mc_payoff",)
+# the payoff kernels against the plain panels: the benchmark's paths over the BTC slices,
+# held at 1e-12 relative; their bound counts port_bench's float64 payoff work (4 operations a
+# path, 6 a path and strike) at 34 TFLOP/s (H100 SXM float64 outside the tensor cores, 700 W)
+PAYOFF_NB_PATH, PAYOFF_RTOL = 4_194_304, 1e-12
+PAYOFF_OPS_PER_PATH, PAYOFF_OPS_PER_PATH_STRIKE, PEAK_F64_OPS_PER_S = 4, 6, 34e12
 # the rough kernel-vs-plain and throughput phases: 3 nodes of the H = 0.1 lift
 ROUGH_H, ROUGH_NODES, ROUGH_T = 0.1, 3, 0.43
 # the Hawkes kernel runs at 1800 steps/yr: ttm 0.05 is 91 steps, 0.2 is 361
@@ -2405,6 +2412,73 @@ def _scaled_gap(label: str, out: torch.Tensor, ref: torch.Tensor, limit: float) 
     return max_abs
 
 
+def _payoff_gap(out, ref) -> float:
+    """the widest relative gap of (prices, stds) lists; inf where the NaN
+    patterns differ."""
+    gap = 0.0
+    for o, r in zip(out, ref):
+        for a, b in zip(o, r):
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            if not np.array_equal(np.isnan(a), np.isnan(b)):
+                return float("inf")
+            ok = ~np.isnan(b)
+            rel = np.abs(a[ok] - b[ok]) / np.maximum(np.abs(b[ok]), np.finfo(np.float64).tiny)
+            gap = max(gap, float(np.max(rel, initial=0.0)))
+    return gap
+
+
+def _mc_payoff_phase(svt, chain) -> tuple:
+    """the payoff kernels (mc_vars_payoff_cuda) against the plain panels
+    (mc_vars_payoff) on float32 terminal states of PAYOFF_NB_PATH paths, one
+    a BTC slice: held at PAYOFF_RTOL, then timed over the four slices by
+    CUDA events in turns (plain, kernel, kernel, plain) beside the float64
+    bound.  Returns (kernel ms, plain ms, bound ms, widest gap) of a chain's
+    four slices."""
+    from stochvolmodels_torch.ops import payoffs
+    from stochvolmodels_torch.ops.bsm import as_option_codes
+
+    dev = torch.device(DEVICE)
+    slices = []
+    for i, ttm in enumerate(chain.ttms):
+        g = torch.Generator(device=dev).manual_seed(100 + i)
+        x = (torch.randn(PAYOFF_NB_PATH, generator=g, device=dev, dtype=torch.float64)
+             * (0.9 * np.sqrt(ttm)) - 0.405 * ttm).to(torch.float32)
+        strikes = torch.as_tensor(np.asarray(chain.strikes_ttms[i], dtype=np.float64), device=dev)
+        slices.append((x, torch.zeros_like(x), float(ttm), float(chain.forwards[i]), strikes,
+                       as_option_codes(chain.optiontypes_ttms[i], dev),
+                       float(chain.discfactors[i])))
+
+    def run(fn):
+        return [fn(x, q, ttm, fwd, k, c, discfactor=d) for x, q, ttm, fwd, k, c, d in slices]
+
+    kernel, plain = (lambda: run(payoffs.mc_vars_payoff_cuda)), (lambda: run(payoffs.mc_vars_payoff))
+    before = payoffs.mc_vars_payoff_cuda.launches
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    _check(payoffs.mc_vars_payoff_cuda.launches == before + len(slices),
+           "the payoff kernels did not run once a slice")
+    gap = _payoff_gap(out, ref)
+    _check(gap <= PAYOFF_RTOL, f"the payoff kernels differ from the plain panels by {gap:.3e}")
+    again = kernel()
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, b) for o, r in zip(out, again) for a, b in zip(o, r)),
+           "two payoff kernel runs on one input differ")
+    plain_ms = [_event_ms(plain, 3)]
+    kernel_ms = [_event_ms(kernel, 20), _event_ms(kernel, 20)]
+    plain_ms.append(_event_ms(plain, 3))
+    k_ms, p_ms = statistics.mean(kernel_ms), statistics.mean(plain_ms)
+    ops = sum(PAYOFF_NB_PATH * (PAYOFF_OPS_PER_PATH + PAYOFF_OPS_PER_PATH_STRIKE * len(k))
+              for k in chain.strikes_ttms)
+    bound_ms = 1e3 * ops / PEAK_F64_OPS_PER_S
+    print(f"[mc-payoff] {PAYOFF_NB_PATH} float32 paths x {len(slices)} BTC slices "
+          f"({[len(k) for k in chain.strikes_ttms]} strikes): kernels {k_ms:.4f} ms, plain panels "
+          f"{p_ms:.3f} ms a chain ({p_ms / k_ms:.1f}x); bound {bound_ms:.4f} ms ({ops:.4e} float64 "
+          f"ops at {PEAK_F64_OPS_PER_S:.0e}/s): {bound_ms / k_ms:.1%} of the bound; widest "
+          f"relative gap {gap:.3e} (gate {PAYOFF_RTOL:.0e}), two runs equal bit for bit; runs "
+          f"kernel {kernel_ms}, plain {plain_ms}", flush=True)
+    return k_ms, p_ms, bound_ms, gap
+
+
 def _variants_vs_plain(cuda_mc, mc_variants, x0: torch.Tensor) -> float:
     """each variant of the study against its plain version at NB_PATH x
     VARIANT_CHECK_STEPS (1e-4 max(|plain|, 1): the kernel's multiply-adds and
@@ -2583,17 +2657,26 @@ def main() -> int:
         _check(np.all(in_band | close), f"MC ivols {im} outside band/0.01 of analytic {ia}")
         worst = max(worst, float(np.max(np.abs(im - ia))))
 
+    from stochvolmodels_torch.ops import payoffs
+
     def mc_call():
         before = cuda_mc.simulate_logsv_terminal_cuda.launches
+        payoff_before = payoffs.mc_vars_payoff_cuda.launches
         gpu.compute_mc_chain_implied_vols(chain, P, engine="cuda", nb_path=NB_PATH, seed=24,
                                           nb_steps=MC_STEPS_PER_YEAR)
         added = cuda_mc.simulate_logsv_terminal_cuda.launches - before
         _check(added == len(chain.ttms), f"one MC chain call made {added} launches")
+        launches["mc_payoff"] = payoffs.mc_vars_payoff_cuda.launches - payoff_before
+        _check(launches["mc_payoff"] == len(chain.ttms),
+               f"one MC chain call ran the payoff kernels {launches['mc_payoff']} times")
 
     mc_ms = _warm_ms(mc_call, repeats=3)
     print(f"[mc-chain] {NB_PATH} paths, {launches['logsv_mc']} kernel launches for "
           f"{len(chain.ttms)} maturities; max |MC ivol - analytic ivol| {worst:.4f}; "
           f"warm compute_mc_chain_implied_vols {mc_ms:.1f} ms", flush=True)
+
+    # the payoff kernels against the plain panels at the benchmark's path count
+    payoff_ms, payoff_plain_ms, payoff_bound_ms, err["mc_payoff"] = _mc_payoff_phase(svt, chain)
 
     # 6. Heston path: analytic pricing and MC through the kernel
     hgpu, hcpu = svt.HestonPricer(device=DEVICE), svt.HestonPricer(device="cpu")
@@ -2780,17 +2863,17 @@ def main() -> int:
           f"path-steps (of 32-path warp-steps): "
           + ", ".join(f"{b} {side} {shares[f'{b}_{side}']:.5f} ({shares[f'warp_{b}_{side}']:.5f})"
                       for b in branch for side in "pm"), flush=True)
-    bounds = {name: _bound_ms(name, ops[name], NB_PATH, steps[name]) for name in KERNELS}
+    bounds = {name: _bound_ms(name, ops[name], NB_PATH, steps[name]) for name in PATH_KERNELS}
     # the issue floor: SASS instructions on the step loop's common path x
     # warp-steps / (SMs x 4 warp-instructions a clock x the SM clock measured under load)
     sass = _load_script("scripts/sass_step_loops.py")
     # the instances timed above: rough_mc at ROUGH_NODES, the study's poly-bm
-    instance = {name: "" for name in KERNELS}
+    instance = {name: "" for name in PATH_KERNELS}
     instance["rough_mc"] = str(ROUGH_NODES)
     instance["logsv_variants"] = str(mc_variants.VARIANTS.index("poly-bm"))
-    steps_per_loop = {name: sass.steps_per_pass(name) for name in KERNELS}
+    steps_per_loop = {name: sass.steps_per_pass(name) for name in PATH_KERNELS}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for name in KERNELS:
+    for name in PATH_KERNELS:
         total, common, _ = sass.loop_lengths(sass.disassemble(_build._lib_path(name)))[instance[name]]
         clock = times[name][2]
         floor = (float("nan") if clock is None else 1e3 * common / steps_per_loop[name]
@@ -2866,6 +2949,10 @@ def main() -> int:
     replaces = {name: f"stochvolmodels_tpu/ops/pallas_mc.py:{line}" for name, line in
                 (("logsv_mc", 142), ("heston_mc", 282), ("rough_mc", 386), ("hawkes_mc", 588))}
     replaces["logsv_variants"] = "scripts/bench_pallas_variants.py:86"
+    # the JAX package leaves its payoffs (stochvolmodels_tpu/ops/payoffs.py) to XLA
+    replaces["mc_payoff"] = None
+    times["mc_payoff"] = (payoff_ms, payoff_plain_ms, None)
+    bounds["mc_payoff"] = (payoff_bound_ms, "float64 operations")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"stochvolmodels_torch/csrc/{name}.cu", "replaces": replaces[name],

@@ -31,6 +31,11 @@ from typing import Iterator, Optional
 import torch
 
 TRACE_FILE = "trace.json"
+# throwaway kernels that open every device_trace on a card: torch.profiler
+# (CUPTI) drops the first device records of a session, more of them the more
+# sessions the process has traced (0-26 in a row of traces on an H100, 406 at
+# one session's start), and these absorb the loss
+TRACE_WARMUP_KERNELS = 512
 
 # one MC chain call (LogSVPricer / HestonPricer .model_mc_price_chain)
 MC_CHAIN_SPAN = "svt.mc_chain"
@@ -65,7 +70,10 @@ def device_trace(trace_dir: Optional[str] = None,
     Open the file in ui.perfetto.dev or chrome://tracing.  CPU activity is
     always recorded, CUDA activity where a card is present; the card is
     synchronised before the profiler starts, so that work queued before the
-    block does not straddle its start.  ``trace_dir`` defaults to a new
+    block does not straddle its start, and the trace opens with
+    ``TRACE_WARMUP_KERNELS`` one-element ``add_`` kernels, which take the
+    device records that the profiler drops at a session's start in place of
+    the block's.  ``trace_dir`` defaults to a new
     temporary directory; the directory is what the block receives.
     ``create_perfetto_link`` is accepted for the JAX package's signature
     (there is no server to link to).
@@ -80,6 +88,11 @@ def device_trace(trace_dir: Optional[str] = None,
         activities.append(ProfilerActivity.CUDA)
         torch.cuda.synchronize()
     with profile(activities=activities) as prof:
+        if torch.cuda.is_available():
+            warm = torch.zeros(1, device="cuda")
+            for _ in range(TRACE_WARMUP_KERNELS):
+                warm.add_(1)
+            torch.cuda.synchronize()
         yield trace_dir
         if torch.cuda.is_available():
             torch.cuda.synchronize()
