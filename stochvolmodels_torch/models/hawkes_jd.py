@@ -35,6 +35,7 @@ from stochvolmodels_torch.ops.lm import lm_init, lm_step
 from stochvolmodels_torch.ops.payoffs import compute_mc_vars_payoff
 from stochvolmodels_torch.ops.random import generator_from_seed
 from stochvolmodels_torch.utils.funcs import set_time_grid, to_flat_np_array
+from stochvolmodels_torch.utils.profiling import MC_CHAIN_SPAN, annotate
 
 MAX_PHI = 500  # transform grid size
 MC_STEPS_PER_YEAR = 5 * 360  # small dt for large intensities
@@ -650,6 +651,7 @@ class HawkesJDPricer(ModelPricer):
             optiontype=grid.optioncodes)
         return option_chain.unpad_panel(torch.where(grid.mask, vols, torch.nan))
 
+    @annotate(MC_CHAIN_SPAN)
     def model_mc_price_chain(self, option_chain: OptionChain, params: HawkesJDParams,
                              nb_path: int = 100000, seed: Optional[int] = None,
                              variable_type: VariableType = VariableType.LOG_RETURN,

@@ -871,11 +871,13 @@ def simulate_hawkesjd_terminal_kernel(seed: int, x0: torch.Tensor, lambda_p0: to
                                       lambda_m0: torch.Tensor, **kwargs
                                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """the Hawkes chain pricer's path loop: CUDA tensors run the CUDA kernel,
-    CPU tensors its plain version.  Nothing else dispatches."""
-    if x0.device.type == "cuda":
-        return simulate_hawkesjd_terminal_cuda(seed, x0, lambda_p0, lambda_m0, **kwargs)
-    if x0.device.type == "cpu":
-        return simulate_hawkesjd_terminal_torch(seed, x0, lambda_p0, lambda_m0, **kwargs)
+    CPU tensors its plain version.  Nothing else dispatches.  One
+    ``MC_PATH_SPAN``."""
+    with annotate(MC_PATH_SPAN):
+        if x0.device.type == "cuda":
+            return simulate_hawkesjd_terminal_cuda(seed, x0, lambda_p0, lambda_m0, **kwargs)
+        if x0.device.type == "cpu":
+            return simulate_hawkesjd_terminal_torch(seed, x0, lambda_p0, lambda_m0, **kwargs)
     raise ValueError(f"no Hawkes MC kernel for device {x0.device}")
 
 

@@ -37,11 +37,12 @@ TRACE_FILE = "trace.json"
 # one session's start), and these absorb the loss
 TRACE_WARMUP_KERNELS = 512
 
-# one MC chain call (LogSVPricer / HestonPricer .model_mc_price_chain)
+# one MC chain call (LogSVPricer / HestonPricer / HawkesJDPricer .model_mc_price_chain)
 MC_CHAIN_SPAN = "svt.mc_chain"
-# a slice's path-kernel launch (ops/cuda_mc.py simulate_*_terminal_kernel)
+# a slice's path-kernel launch (ops/cuda_mc.py simulate_{logsv,heston,hawkesjd}_terminal_kernel)
 MC_PATH_SPAN = "svt.mc.path"
-# a slice's payoff panels and reductions, as enqueued (ops/payoffs.py mc_vars_payoff)
+# a slice's payoff reductions, as enqueued (ops/payoffs.py: the kernels of
+# mc_vars_payoff_cuda on a card, the panels of mc_vars_payoff elsewhere)
 MC_PAYOFF_SPAN = "svt.mc.payoff"
 # one LM fit (calibrate_logsv_lm_on_device, calibrate_heston_lm)
 LM_FIT_SPAN = "svt.lm_fit"
