@@ -27,7 +27,10 @@ four, and the study's poly-bm and one-prng, run once more at a path count
 that leaves their last block half empty, bit for bit the first paths of the
 full run.  Each
 path runs with every launch count set to 0 just before it and read just
-after.  Then the LogSV calibration on the BTC chain from ``bench.py``'s
+after.  Then the chain's affine RK4 kernel of the LM fit (``csrc/affine_rk4.cu``)
+against its plain version and ``jacfwd`` of it at the BTC chain, its primal
+and tangent launches timed beside their float64 bound, and an eager fit's
+launches counted.  Then the LogSV calibration on the BTC chain from ``bench.py``'s
 start point: 12 Levenberg-Marquardt iterations through the pricer
 (``method='lm'``) and through ``calibrate_logsv_lm_on_device``, each a
 captured CUDA graph, held bit for bit against the eager fit, with the fit's
@@ -129,11 +132,14 @@ THROUGHPUT_TTM = 1.0      # 361 Euler steps at 360 steps/yr
 MC_STEPS_PER_YEAR = 360
 PATH_KERNELS = ("logsv_mc", "heston_mc", "rough_mc", "hawkes_mc", "logsv_variants")
 # the MC payoff reductions (csrc/mc_payoff.cu) beside the path loops
-KERNELS = PATH_KERNELS + ("mc_payoff",)
+KERNELS = PATH_KERNELS + ("mc_payoff", "affine_rk4")
 # the payoff kernels against the plain panels: the benchmark's paths over the BTC slices,
 # held at 1e-12 relative; their bound counts port_bench's float64 payoff work (4 operations a
 # path, 6 a path and strike) at 34 TFLOP/s (H100 SXM float64 outside the tensor cores, 700 W)
 PAYOFF_NB_PATH, PAYOFF_RTOL = 4_194_304, 1e-12
+# the chain's affine RK4 (csrc/affine_rk4.cu) against its plain version at the BTC chain, 360
+# RK4 steps a year: the panel's and the partials' gaps of max(|plain|, 1), as the tests hold them
+AFFINE_YEAR_STEPS, AFFINE_PANEL_RTOL, AFFINE_PARTIALS_RTOL = 360, 1e-13, 1e-12
 PAYOFF_OPS_PER_PATH, PAYOFF_OPS_PER_PATH_STRIKE, PEAK_F64_OPS_PER_S = 4, 6, 34e12
 # the rough kernel-vs-plain and throughput phases: 3 nodes of the H = 0.1 lift
 ROUGH_H, ROUGH_NODES, ROUGH_T = 0.1, 3, 0.43
@@ -2479,6 +2485,93 @@ def _mc_payoff_phase(svt, chain) -> tuple:
     return k_ms, p_ms, bound_ms, gap
 
 
+def _affine_rk4_phase(svt, chain) -> tuple:
+    """the chain's affine RK4 kernel (``ops/affine_rk4.py``) at the BTC chain
+    against its plain version (the torch-op RK4) and ``jacfwd`` of it: held
+    at AFFINE_PANEL_RTOL and AFFINE_PARTIALS_RTOL, then the primal and the
+    tangent launch timed by CUDA events in turns (plain, kernel, kernel,
+    plain) beside their float64 bounds, and an eager LM fit's launches
+    counted.  Returns (a fit's kernel ms, its plain ms, its bound ms, the
+    widest gap, its launches): a fit of CALIB_LM_ITERS iterations is 1 + 2
+    CALIB_LM_ITERS primal and CALIB_LM_ITERS tangent launches."""
+    from torch.func import jacfwd
+
+    from stochvolmodels_torch.ops import affine_rk4, graphs, mgf
+
+    dev = torch.device(DEVICE)
+    P = svt.LOGSV_BTC_PARAMS
+    pvec = torch.tensor([P.sigma0, P.theta, P.kappa1, P.kappa2, P.beta, P.volvol],
+                        dtype=torch.float64, device=dev)
+    vol_scaler = svt.set_vol_scaler(chain.get_chain_atm_vols()[0], chain.ttms[0])
+    phi = mgf.get_phi_grid(vol_scaler=vol_scaler, device=dev)
+    schedule = affine_rk4.chain_schedule(tuple(map(float, chain.ttms)), AFFINE_YEAR_STEPS)
+    plain = lambda: affine_rk4.log_mgf_chain_plain(pvec, phi, schedule)
+    jac = jacfwd(lambda p: torch.view_as_real(affine_rk4.log_mgf_chain_plain(p, phi, schedule)))
+    plain_tangent = lambda: jac(pvec)
+    kernel = lambda: affine_rk4.log_mgf_chain_cuda(pvec, phi, schedule)
+    kernel_tangent = lambda: affine_rk4.log_mgf_chain_cuda(pvec, phi, schedule, tangents=True)
+    ref, ref_partials = plain(), torch.view_as_complex(plain_tangent().movedim(-1, 0).contiguous())
+    panel, (panel_t, partials) = kernel(), kernel_tangent()
+    torch.cuda.synchronize()
+    _check(torch.equal(panel, panel_t), "the tangent launch's panel differs from the primal's")
+    panel_gap = _rel_scaled(panel, ref)
+    partials_gap = max(_rel_scaled(partials[j], ref_partials[j]) for j in range(6))
+    _check(panel_gap <= AFFINE_PANEL_RTOL and partials_gap <= AFFINE_PARTIALS_RTOL,
+           f"affine_rk4 differs from its plain version: panel {panel_gap:.3e}, partials "
+           f"{partials_gap:.3e}")
+    again = kernel_tangent()
+    torch.cuda.synchronize()
+    _check(torch.equal(again[1], partials), "two tangent launches differ")
+    ms = {}
+    for name, fn, repeats in (("plain", plain, 3), ("kernel", kernel, 50),
+                              ("plain tangent", plain_tangent, 3),
+                              ("kernel tangent", kernel_tangent, 50)):
+        fn()
+        ms[name] = [_event_ms(fn, repeats)]
+    for name, fn, repeats in (("kernel tangent", kernel_tangent, 50), ("plain tangent", plain_tangent, 3),
+                              ("kernel", kernel, 50), ("plain", plain, 3)):
+        ms[name].append(_event_ms(fn, repeats))
+    ms = {k: statistics.mean(v) for k, v in ms.items()}
+    points, steps = phi.shape[0], sum(s for s, _ in schedule)
+    primal_flops = points * steps * affine_rk4.PRIMAL_FLOPS
+    tangent_flops = points * steps * (affine_rk4.PRIMAL_FLOPS + 5 * affine_rk4.DIRECTION_FLOPS)
+    bound = {"kernel": 1e3 * primal_flops / PEAK_F64_OPS_PER_S,
+             "kernel tangent": 1e3 * tangent_flops / PEAK_F64_OPS_PER_S}
+    p0 = svt.LogSvParams(**CALIB_PARAMS0)
+    launches = (affine_rk4.log_mgf_chain_cuda.launches,
+                affine_rk4.log_mgf_chain_cuda.tangent_launches)
+    with graphs.eager():
+        svt.calibrate_logsv_lm_on_device(chain, p0, nb_iters=CALIB_LM_ITERS, device=DEVICE)
+    launches = (affine_rk4.log_mgf_chain_cuda.launches - launches[0],
+                affine_rk4.log_mgf_chain_cuda.tangent_launches - launches[1])
+    _check(launches == (1 + 2 * CALIB_LM_ITERS, CALIB_LM_ITERS),
+           f"an eager LM fit launched affine_rk4 {launches} times (primal, tangent)")
+    fit = {k: launches[0] * ms[k] + launches[1] * ms[f"{k} tangent"] for k in ("plain", "kernel")}
+    fit_bound = launches[0] * bound["kernel"] + launches[1] * bound["kernel tangent"]
+    print(f"[affine-rk4] BTC chain, {points} points x {steps} RK4 steps ({AFFINE_YEAR_STEPS}/yr): "
+          f"primal kernel {ms['kernel']:.4f} ms vs plain {ms['plain']:.3f} ms, bound "
+          f"{bound['kernel']:.4f} ms ({bound['kernel'] / ms['kernel']:.1%}); tangent kernel "
+          f"{ms['kernel tangent']:.4f} ms vs plain jacfwd {ms['plain tangent']:.3f} ms, bound "
+          f"{bound['kernel tangent']:.4f} ms ({bound['kernel tangent'] / ms['kernel tangent']:.1%}) "
+          f"({affine_rk4.PRIMAL_FLOPS} + 5 x {affine_rk4.DIRECTION_FLOPS} float64 ops a point-step "
+          f"at {PEAK_F64_OPS_PER_S:.0e}/s); gaps: panel {panel_gap:.3e} (gate "
+          f"{AFFINE_PANEL_RTOL:.0e}), partials {partials_gap:.3e} (gate {AFFINE_PARTIALS_RTOL:.0e}); "
+          f"an eager LM fit of {CALIB_LM_ITERS} iterations: {launches[0]} primal + {launches[1]} "
+          f"tangent launches, kernels {fit['kernel']:.3f} ms a fit (plain {fit['plain']:.1f} ms, "
+          f"bound {fit_bound:.4f} ms)", flush=True)
+    return fit["kernel"], fit["plain"], fit_bound, max(panel_gap, partials_gap), sum(launches)
+
+
+def _rel_scaled(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |out - ref| / max(|ref|, 1) of two complex panels; inf where the NaN
+    patterns differ."""
+    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    if not np.array_equal(np.isnan(out), np.isnan(ref)):
+        return float("inf")
+    ok = ~np.isnan(ref)
+    return float(np.max(np.abs(out[ok] - ref[ok]) / np.maximum(np.abs(ref[ok]), 1.0), initial=0.0))
+
+
 def _variants_vs_plain(cuda_mc, mc_variants, x0: torch.Tensor) -> float:
     """each variant of the study against its plain version at NB_PATH x
     VARIANT_CHECK_STEPS (1e-4 max(|plain|, 1): the kernel's multiply-adds and
@@ -2677,6 +2770,9 @@ def main() -> int:
 
     # the payoff kernels against the plain panels at the benchmark's path count
     payoff_ms, payoff_plain_ms, payoff_bound_ms, err["mc_payoff"] = _mc_payoff_phase(svt, chain)
+    # the chain's affine RK4 of the LM fit against its plain version, and an LM fit's launches
+    (affine_ms, affine_plain_ms, affine_bound_ms, err["affine_rk4"],
+     launches["affine_rk4"]) = _affine_rk4_phase(svt, chain)
 
     # 6. Heston path: analytic pricing and MC through the kernel
     hgpu, hcpu = svt.HestonPricer(device=DEVICE), svt.HestonPricer(device="cpu")
@@ -2953,6 +3049,11 @@ def main() -> int:
     replaces["mc_payoff"] = None
     times["mc_payoff"] = (payoff_ms, payoff_plain_ms, None)
     bounds["mc_payoff"] = (payoff_bound_ms, "float64 operations")
+    # the JAX package leaves its affine solve (stochvolmodels_tpu/models/logsv/affine.py) to XLA;
+    # the times and bound are an LM fit's launches
+    replaces["affine_rk4"] = None
+    times["affine_rk4"] = (affine_ms, affine_plain_ms, None)
+    bounds["affine_rk4"] = (affine_bound_ms, "float64 operations")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"stochvolmodels_torch/csrc/{name}.cu", "replaces": replaces[name],

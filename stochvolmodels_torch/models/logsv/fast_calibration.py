@@ -16,8 +16,10 @@ Two solvers fit the PARAMS5 vector [sigma0, theta, kappa1, beta, volvol]
 * :func:`calibrate_logsv_on_device` — projected Adam with a cosine learning
   rate; first-order, hundreds of iterations, run eagerly.
 
-Both price with the float64 affine RK4 and invert with the fast implied vol
-(bisection + Newton, implicit-function derivatives).
+Both price with the float64 affine RK4 (on a card the hand-written kernel of
+``ops/affine_rk4.py``, one launch a residual pass and one more for its
+tangents) and invert with the fast implied vol (bisection + Newton,
+implicit-function derivatives).
 """
 from __future__ import annotations
 
@@ -29,13 +31,8 @@ import torch
 
 from stochvolmodels_torch.data.option_chain import ChainGrid, OptionChain
 from stochvolmodels_torch.models.logsv.params import LogSvParams
-from stochvolmodels_torch.models.logsv.pricer import (
-    ConstraintsType,
-    _pad_panel,
-    logsv_chain_price_grid,
-    set_vol_scaler,
-)
-from stochvolmodels_torch.ops import bsm, graphs
+from stochvolmodels_torch.models.logsv.pricer import ConstraintsType, _pad_panel, set_vol_scaler
+from stochvolmodels_torch.ops import affine_rk4, bsm, graphs, mgf
 from stochvolmodels_torch.ops.lm import lm_minimize
 from stochvolmodels_torch.utils.profiling import (
     LM_FIT_SPAN,
@@ -99,12 +96,20 @@ def _constraint_gaps(constraints_type: ConstraintsType, theta, kappa1, kappa2, b
 def _model_vols(pars: torch.Tensor, grid: ChainGrid, vol_scaler, ttms_static, year_steps: int
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """the fast implied vols of the chain panel at the PARAMS5 vector, and
-    (theta, kappa1, kappa2, beta, volvol)."""
+    (theta, kappa1, kappa2, beta, volvol).  The chain's log-MGF panel comes
+    from ``affine_rk4.log_mgf_chain`` (one kernel launch on a card), then
+    each slice is priced by the Fourier quadrature, as
+    ``logsv_chain_price_grid`` prices it."""
     sigma0, theta, kappa1, beta, volvol = pars.unbind()
     kappa2 = kappa1 / theta
-    prices = logsv_chain_price_grid(
-        grid, sigma0=sigma0, theta=theta, kappa1=kappa1, kappa2=kappa2, beta=beta,
-        volvol=volvol, vol_scaler=vol_scaler, ttms_static=ttms_static, year_steps=year_steps)
+    phi_grid = mgf.get_phi_grid(vol_scaler=vol_scaler, device=grid.device)
+    log_mgf = affine_rk4.log_mgf_chain(
+        torch.stack([sigma0, theta, kappa1, kappa2, beta, volvol]), phi_grid,
+        affine_rk4.chain_schedule(ttms_static, year_steps))
+    prices = torch.stack([mgf.vanilla_prices_with_mgf_grid(
+        log_mgf_grid=log_mgf[i], phi_grid=phi_grid, forwards=grid.forwards[i],
+        strikes=grid.strikes[i], optiontypes=grid.optioncodes[i],
+        discfactors=grid.discfactors[i]) for i in range(len(ttms_static))])
     vols = bsm.infer_bsm_implied_vol_fast(
         forward=grid.forwards[:, None], ttm=grid.ttms[:, None], strike=grid.strikes,
         given_price=prices, discfactor=grid.discfactors[:, None], optiontype=grid.optioncodes)
