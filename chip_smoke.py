@@ -30,7 +30,10 @@ path runs with every launch count set to 0 just before it and read just
 after.  Then the chain's affine RK4 kernel of the LM fit (``csrc/affine_rk4.cu``)
 against its plain version and ``jacfwd`` of it at the BTC chain, its primal
 and tangent launches timed beside their float64 bound, and an eager fit's
-launches counted.  Then the LogSV calibration on the BTC chain from ``bench.py``'s
+launches counted; and the fast implied vol's kernel (``csrc/fast_iv.cu``)
+against its plain version at the BTC chain's padded panel, timed beside its
+float64 bound and the latency floor of one slot, its launches in an eager
+fit counted.  Then the LogSV calibration on the BTC chain from ``bench.py``'s
 start point: 12 Levenberg-Marquardt iterations through the pricer
 (``method='lm'``) and through ``calibrate_logsv_lm_on_device``, each a
 captured CUDA graph, held bit for bit against the eager fit, with the fit's
@@ -132,7 +135,7 @@ THROUGHPUT_TTM = 1.0      # 361 Euler steps at 360 steps/yr
 MC_STEPS_PER_YEAR = 360
 PATH_KERNELS = ("logsv_mc", "heston_mc", "rough_mc", "hawkes_mc", "logsv_variants")
 # the MC payoff reductions (csrc/mc_payoff.cu) beside the path loops
-KERNELS = PATH_KERNELS + ("mc_payoff", "affine_rk4")
+KERNELS = PATH_KERNELS + ("mc_payoff", "affine_rk4", "fast_iv")
 # the payoff kernels against the plain panels: the benchmark's paths over the BTC slices,
 # held at 1e-12 relative; their bound counts port_bench's float64 payoff work (4 operations a
 # path, 6 a path and strike) at 34 TFLOP/s (H100 SXM float64 outside the tensor cores, 700 W)
@@ -140,6 +143,9 @@ PAYOFF_NB_PATH, PAYOFF_RTOL = 4_194_304, 1e-12
 # the chain's affine RK4 (csrc/affine_rk4.cu) against its plain version at the BTC chain, 360
 # RK4 steps a year: the panel's and the partials' gaps of max(|plain|, 1), as the tests hold them
 AFFINE_YEAR_STEPS, AFFINE_PANEL_RTOL, AFFINE_PARTIALS_RTOL = 360, 1e-13, 1e-12
+# the fast IV kernel (csrc/fast_iv.cu) against its plain version at the BTC chain's padded panel
+# (prices at the mid vols): the vol's and the rule's gaps of max(|plain|, 1), as the tests hold them
+FAST_IV_RTOL = 1e-13
 PAYOFF_OPS_PER_PATH, PAYOFF_OPS_PER_PATH_STRIKE, PEAK_F64_OPS_PER_S = 4, 6, 34e12
 # the rough kernel-vs-plain and throughput phases: 3 nodes of the H = 0.1 lift
 ROUGH_H, ROUGH_NODES, ROUGH_T = 0.1, 3, 0.43
@@ -316,6 +322,26 @@ def _event_ms(fn, repeats: int) -> float:
     start.record()
     for _ in range(repeats):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
+def _graph_ms(fn, repeats: int) -> float:
+    """mean device ms of ``fn`` over ``repeats`` calls captured in one CUDA
+    graph and replayed, timed by CUDA events: the device's time without the
+    host's launches between the calls."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(repeats):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / repeats
@@ -2562,6 +2588,79 @@ def _affine_rk4_phase(svt, chain) -> tuple:
     return fit["kernel"], fit["plain"], fit_bound, max(panel_gap, partials_gap), sum(launches)
 
 
+def _fast_iv_phase(svt, chain) -> tuple:
+    """the fast IV kernel (``ops/bsm.py::fast_iv_cuda``) at the BTC chain's
+    padded panel against its plain version (the torch ops of ``_fast_iv_impl``
+    and, at its vol, of the rule's ``_inverse_vega_and_partials``): held at
+    FAST_IV_RTOL, then timed by CUDA events over captured graphs in turns
+    (plain, kernel, kernel, plain) beside its float64 flop bound and the
+    latency floor of one thread's chain (the kernel on one slot of the
+    panel), and an eager LM fit's launches counted.  Returns (a fit's kernel
+    ms, its plain ms, its bound ms, the widest gap, its launches): a fit of
+    CALIB_LM_ITERS iterations is 1 + 2 CALIB_LM_ITERS launches."""
+    from stochvolmodels_torch.models.logsv import fast_calibration as tfc
+    from stochvolmodels_torch.ops import bsm, graphs
+
+    dev = torch.device(DEVICE)
+    _, grid, market, _ = tfc._chain_targets(chain, True, dev)
+    price = bsm.compute_bsm_vanilla_price(
+        forward=grid.forwards[:, None], strike=grid.strikes, ttm=grid.ttms[:, None],
+        vol=torch.as_tensor(market, dtype=torch.float64, device=dev),
+        optiontype=grid.optioncodes, discfactor=grid.discfactors[:, None])
+    inputs = tuple(x.contiguous() for x in bsm._broadcast_inputs(
+        grid.forwards[:, None], grid.ttms[:, None], grid.strikes, price,
+        grid.discfactors[:, None], grid.optioncodes))
+    one_slot = tuple(x.reshape(-1)[:1].contiguous() for x in inputs)
+
+    def plain():
+        vol = bsm._fast_iv_impl(*inputs, 24, 4)
+        inv_vega, partials = bsm._inverse_vega_and_partials(
+            vol, *inputs[1:], 1e-12 * inputs[1])
+        return (vol, inv_vega) + tuple(partials)
+
+    kernel = lambda: bsm.fast_iv_cuda(*inputs)
+    kernel_one = lambda: bsm.fast_iv_cuda(*one_slot)
+    ref, out = plain(), kernel()
+    torch.cuda.synchronize()
+    gap = max(_rel_scaled(o, r) for o, r in zip(out, ref))
+    exact = all(torch.equal(torch.nan_to_num(o, nan=-1.0), torch.nan_to_num(r, nan=-1.0))
+                for o, r in zip(out, ref))
+    _check(gap <= FAST_IV_RTOL, f"fast_iv differs from its plain version: {gap:.3e}")
+    # in CUDA graphs, as the LM fit runs them: the host's launch of a ctypes call (~30 us)
+    # would otherwise hide the kernel's own time
+    ms = {}
+    for name, fn, repeats in (("plain", plain, 3), ("kernel", kernel, 200),
+                              ("one slot", kernel_one, 200)):
+        ms[name] = [_graph_ms(fn, repeats)]
+    for name, fn, repeats in (("one slot", kernel_one, 200), ("kernel", kernel, 200),
+                              ("plain", plain, 3)):
+        ms[name].append(_graph_ms(fn, repeats))
+    ms = {k: statistics.mean(v) for k, v in ms.items()}
+    slots = inputs[0].numel()
+    fixed, per_bisect, per_newton = bsm.FAST_IV_FLOPS
+    flops = slots * (fixed + 24 * per_bisect + 4 * per_newton)
+    bound = 1e3 * flops / PEAK_F64_OPS_PER_S
+    p0 = svt.LogSvParams(**CALIB_PARAMS0)
+    launches = bsm.fast_iv_cuda.launches
+    with graphs.eager():
+        svt.calibrate_logsv_lm_on_device(chain, p0, nb_iters=CALIB_LM_ITERS, device=DEVICE)
+    launches = bsm.fast_iv_cuda.launches - launches
+    _check(launches == 1 + 2 * CALIB_LM_ITERS,
+           f"an eager LM fit launched fast_iv {launches} times")
+    fit_ms = {k: launches * ms[k] for k in ("kernel", "plain")}
+    print(f"[fast-iv] BTC panel, {slots} slots (24 bisection + 4 Newton stages): kernel "
+          f"{ms['kernel']:.4f} ms vs plain {ms['plain']:.3f} ms "
+          f"({ms['plain'] / ms['kernel']:.0f}x); "
+          f"float64 flop bound {bound:.3e} ms ({flops} ops, {bsm.FAST_IV_FLOPS} a slot's fixed, "
+          f"bisection and Newton ops, at {PEAK_F64_OPS_PER_S:.0e}/s): {bound / ms['kernel']:.3%} "
+          f"of it; latency floor (one slot, one thread's chain) {ms['one slot']:.4f} ms, the "
+          f"panel {ms['kernel'] / ms['one slot']:.2f}x it; widest gap {gap:.3e} (gate "
+          f"{FAST_IV_RTOL:.0e}), bit for bit {exact}; an eager LM fit of {CALIB_LM_ITERS} "
+          f"iterations: {launches} launches (fast_iv_cuda.launches), kernel "
+          f"{fit_ms['kernel']:.3f} ms a fit (plain {fit_ms['plain']:.1f} ms)", flush=True)
+    return fit_ms["kernel"], fit_ms["plain"], launches * bound, gap, launches
+
+
 def _rel_scaled(out: torch.Tensor, ref: torch.Tensor) -> float:
     """max |out - ref| / max(|ref|, 1) of two complex panels; inf where the NaN
     patterns differ."""
@@ -2773,6 +2872,9 @@ def main() -> int:
     # the chain's affine RK4 of the LM fit against its plain version, and an LM fit's launches
     (affine_ms, affine_plain_ms, affine_bound_ms, err["affine_rk4"],
      launches["affine_rk4"]) = _affine_rk4_phase(svt, chain)
+    # the fast IV kernel of the LM fit against its plain version, and an LM fit's launches
+    (fast_iv_ms, fast_iv_plain_ms, fast_iv_bound_ms, err["fast_iv"],
+     launches["fast_iv"]) = _fast_iv_phase(svt, chain)
 
     # 6. Heston path: analytic pricing and MC through the kernel
     hgpu, hcpu = svt.HestonPricer(device=DEVICE), svt.HestonPricer(device="cpu")
@@ -3054,6 +3156,11 @@ def main() -> int:
     replaces["affine_rk4"] = None
     times["affine_rk4"] = (affine_ms, affine_plain_ms, None)
     bounds["affine_rk4"] = (affine_bound_ms, "float64 operations")
+    # the JAX package leaves its fast implied vol (stochvolmodels_tpu/ops/bsm.py) to XLA; the
+    # times and bound are an LM fit's launches
+    replaces["fast_iv"] = None
+    times["fast_iv"] = (fast_iv_ms, fast_iv_plain_ms, None)
+    bounds["fast_iv"] = (fast_iv_bound_ms, "float64 operations")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"stochvolmodels_torch/csrc/{name}.cu", "replaces": replaces[name],

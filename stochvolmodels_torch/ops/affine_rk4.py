@@ -36,7 +36,7 @@ import torch
 
 from stochvolmodels_torch.models.logsv import affine as afe
 from stochvolmodels_torch.models.logsv.affine import ExpansionOrder
-from stochvolmodels_torch.ops.cuda_mc import _launcher, _raise_on_error
+from stochvolmodels_torch.ops.cuda_mc import _batch_first, _launcher, _raise_on_error
 
 # a host step schedule: (steps, dt) of each maturity segment
 Schedule = Tuple[Tuple[int, float], ...]
@@ -157,12 +157,6 @@ def log_mgf_chain_cuda(pvec: torch.Tensor, phi_grid: torch.Tensor, schedule: Sch
 
 log_mgf_chain_cuda.launches = 0
 log_mgf_chain_cuda.tangent_launches = 0
-
-
-def _batch_first(x: torch.Tensor, dim, size: int) -> torch.Tensor:
-    """``x`` with its vmapped dimension first (repeated ``size`` times where
-    it has none)."""
-    return x.expand(size, *x.shape) if dim is None else x.movedim(dim, 0)
 
 
 class _ChainPartials(torch.autograd.Function):

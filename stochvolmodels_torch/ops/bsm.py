@@ -7,15 +7,19 @@ elementwise over broadcastable tensors.  Implied volatility is the reference's
 200-iteration bisection on [0.01, 5.0] with NaN at the bounds, run on whole
 panels with a frozen-when-done mask; on a CUDA device it replays as one
 captured graph per panel shape (``ops/graphs.py``).  The fast implied vol is
-a 24-step bisection and 4 Newton steps, for calibration objectives.  Both
-inversions are differentiable by the implicit function theorem (d vol / d
-price = 1 / vega): the bisection in reverse mode, the fast one in forward
-mode too, so ``torch.func.jacfwd`` and ``vmap`` go through it.  Float inputs
-and numpy arrays become float64 tensors on the device of the first tensor
-argument (the card if none).
+a 24-step bisection and 4 Newton steps, for calibration objectives: on a
+CUDA panel one launch of the hand-written kernel ``csrc/fast_iv.cu``
+(:func:`fast_iv_cuda`), which also writes the tangent rule's inputs at the
+solved vol; on a CPU panel the plain torch-op version
+(:func:`_fast_iv_impl`).  Both inversions are differentiable by the implicit
+function theorem (d vol / d price = 1 / vega): the bisection in reverse mode,
+the fast one in forward mode too, so ``torch.func.jacfwd`` and ``vmap`` go
+through it.  Float inputs and numpy arrays become float64 tensors on the
+device of the first tensor argument (the card if none).
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -23,10 +27,19 @@ import torch
 
 from stochvolmodels_torch.config import encode_optiontypes
 from stochvolmodels_torch.ops import graphs
+from stochvolmodels_torch.ops.cuda_mc import _batch_first, _launcher, _raise_on_error
 from stochvolmodels_torch.ops.gauss import ERFCC_COEFFS, _device_of, ncdf, norm_ppf, npdf
 from stochvolmodels_torch.utils.profiling import to_device
 
 IV_LOWER, IV_UPPER, IV_TOL = 0.01, 5.0, 1e-16
+# csrc/fast_iv.cu's fast_iv_launch: (price, forward, strike, ttm, discfactor, sign, vol,
+# inv_vega, dp_dforward, dp_dstrike, dp_dttm, dp_ddiscfactor, n, nb_bisect, nb_newton, stream)
+FAST_IV_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                             ctypes.c_void_p]
+# float64 operations a slot, counted from csrc/fast_iv.cu (a libm call or a division one):
+# the bracket, the dummy price, the midpoint and the rule's inputs; a bisection stage; a
+# Newton stage
+FAST_IV_FLOPS = (426, 74, 84)
 
 
 def _f64(x, device: torch.device) -> torch.Tensor:
@@ -387,6 +400,22 @@ def _fast_iv_impl(given_price, forward, strike, ttm, discfactor, sgn,
     return torch.where(bracketed, vol, torch.nan)
 
 
+def _implicit_tangent(inv_vega, partials, d_price, d_inputs):
+    """the rule's forward mode: (dP - sum dP/dx dx) / vega over the inputs
+    (F, K, T, df) that carry a tangent."""
+    dvol = d_price if d_price is not None else torch.zeros_like(inv_vega)
+    for d, partial in zip(d_inputs, partials):
+        if d is not None:
+            dvol = dvol - partial * d
+    return inv_vega * dvol
+
+
+def _implicit_cotangents(inv_vega, partials, grad):
+    """the rule's reverse mode: the cotangents of (price, F, K, T, df)."""
+    gv = grad * inv_vega
+    return (gv,) + tuple(-gv * d for d in partials)
+
+
 class _FastIVCore(torch.autograd.Function):
     """the fast implied vol with the implicit-function tangent rule
 
@@ -394,7 +423,9 @@ class _FastIVCore(torch.autograd.Function):
 
     vega floored at 1e-12 x forward (0 where the vol is NaN), in forward mode
     (``jvp``) and transposed in reverse mode (``backward``).  Differentiating
-    through the Newton polish instead would compound 1/vega four times."""
+    through the Newton polish instead would compound 1/vega four times.  The
+    plain version, for CPU panels: the rule's inputs are computed from the
+    saved vol in each pass."""
     generate_vmap_rule = True
 
     @staticmethod
@@ -417,17 +448,104 @@ class _FastIVCore(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, d_price, d_forward, d_strike, d_ttm, d_disc, _d_sgn, _nb_bisect, _nb_newton):
         inv_vega, partials = _FastIVCore._rule(ctx)
-        dvol = d_price if d_price is not None else torch.zeros_like(inv_vega)
-        for d, partial in zip((d_forward, d_strike, d_ttm, d_disc), partials):
-            if d is not None:
-                dvol = dvol - partial * d
-        return inv_vega * dvol
+        return _implicit_tangent(inv_vega, partials, d_price, (d_forward, d_strike, d_ttm, d_disc))
 
     @staticmethod
     def backward(ctx, grad):
         inv_vega, partials = _FastIVCore._rule(ctx)
-        gv = grad * inv_vega
-        return (gv,) + tuple(-gv * d for d in partials) + (None, None, None)
+        return _implicit_cotangents(inv_vega, partials, grad) + (None, None, None)
+
+
+def fast_iv_cuda(given_price, forward, strike, ttm, discfactor, sgn, nb_bisect: int = 24,
+                 nb_newton: int = 4):
+    """:func:`_fast_iv_impl` by ``csrc/fast_iv.cu``: (vol, 1 / vega, dP/dF,
+    dP/dK, dP/dT, dP/d df), float64 CUDA tensors of the inputs' shape without
+    gradient; the last five are :func:`_inverse_vega_and_partials` at the vol
+    with the vega floor 1e-12 x forward, the tangent rule's inputs.
+
+    Six float64 tensors of one shape, contiguous, on one CUDA device (``sgn``
+    1.0 for a call, -1.0 for a put).  Launches one kernel on the current
+    stream without synchronising (none for an empty panel); anything else, or
+    a refused launch, raises.  Counts: ``fast_iv_cuda.launches``.
+    """
+    inputs = (given_price, forward, strike, ttm, discfactor, sgn)
+    if any(x.dtype != torch.float64 for x in inputs):
+        raise TypeError(f"the fast IV kernel takes float64 tensors, got "
+                        f"{[str(x.dtype) for x in inputs]}")
+    shape = given_price.shape
+    if any(x.shape != shape for x in inputs):
+        raise ValueError(f"the fast IV kernel takes tensors of one shape, got "
+                         f"{[tuple(x.shape) for x in inputs]}")
+    if not all(x.is_contiguous() for x in inputs):
+        raise ValueError("the fast IV kernel takes contiguous tensors")
+    nb_slots = given_price.numel()
+    if not (nb_slots < 2 ** 31 and all(isinstance(k, int) and 0 <= k < 2 ** 31
+                                       for k in (nb_bisect, nb_newton))):
+        raise ValueError(f"the fast IV kernel takes under 2^31 slots and stage counts, got "
+                         f"{nb_slots} slots, {nb_bisect} and {nb_newton} stages")
+    if given_price.device.type != "cuda":
+        raise ValueError(f"the fast IV kernel needs CUDA tensors, got {given_price.device}")
+    if any(x.device != given_price.device for x in inputs):
+        raise ValueError("the fast IV kernel's inputs must be on one device")
+    outputs = tuple(torch.empty_like(given_price) for _ in range(6))
+    if nb_slots == 0:
+        return outputs
+    launch = _launcher("fast_iv", FAST_IV_ARGTYPES)
+    with torch.cuda.device(given_price.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(*(x.data_ptr() for x in inputs + outputs), nb_slots, nb_bisect, nb_newton,
+                     stream)
+    _raise_on_error("fast_iv", err)
+    fast_iv_cuda.launches += 1
+    return outputs
+
+
+fast_iv_cuda.launches = 0
+
+
+class _FastIVKernel(torch.autograd.Function):
+    """:class:`_FastIVCore` on a CUDA panel: one kernel launch gives the vol
+    and the tangent rule's inputs (1/vega and the four price partials), which
+    the ``jvp`` and ``backward`` rules combine with the input tangents or the
+    output's cotangent; the ``vmap`` rule folds a vmapped batch into the
+    kernel's slot axis (one launch a batch).  Outputs (vol, 1/vega, dP/dF,
+    dP/dK, dP/dT, dP/d df); only the vol is differentiable."""
+
+    @staticmethod
+    def forward(given_price, forward, strike, ttm, discfactor, sgn, nb_bisect, nb_newton):
+        return fast_iv_cuda(*(x.contiguous() for x in (given_price, forward, strike, ttm,
+                                                       discfactor, sgn)),
+                            nb_bisect, nb_newton)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        rule = output[1:]
+        ctx.mark_non_differentiable(*rule)
+        ctx.save_for_forward(*rule)
+        ctx.save_for_backward(*rule)
+
+    @staticmethod
+    def jvp(ctx, d_price, d_forward, d_strike, d_ttm, d_disc, _d_sgn, _nb_bisect, _nb_newton):
+        inv_vega, *partials = ctx.saved_tensors
+        dvol = _implicit_tangent(inv_vega, partials, d_price, (d_forward, d_strike, d_ttm, d_disc))
+        return (dvol,) + (None,) * 5
+
+    @staticmethod
+    def backward(ctx, grad, *_rule_grads):
+        inv_vega, *partials = ctx.saved_tensors
+        return _implicit_cotangents(inv_vega, partials, grad) + (None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, given_price, forward, strike, ttm, discfactor, sgn, nb_bisect,
+             nb_newton):
+        tensors = (given_price, forward, strike, ttm, discfactor, sgn)
+        out = _FastIVKernel.apply(*(_batch_first(x, d, info.batch_size)
+                                    for x, d in zip(tensors, in_dims)), nb_bisect, nb_newton)
+        return out, (0,) * len(out)
+
+
+def _takes_kernel(given_price: torch.Tensor) -> bool:
+    return given_price.is_cuda
 
 
 def _broadcast_inputs(forward, ttm, strike, given_price, discfactor, optiontype):
@@ -477,16 +595,19 @@ def infer_bsm_implied_vol_fast(forward, ttm, strike, given_price, discfactor=1.0
     and reverse mode, so ``torch.func.jacfwd``, ``vmap`` and ``backward`` go
     through it.  ``higher_order=True`` (for nested forward-mode, e.g. gamma
     in vol space) takes the derivatives of :func:`_implicit_newton` from the
-    solved vol instead, which are exact to second order.
+    solved vol instead, which are exact to second order.  A CUDA panel is
+    solved by one launch of ``csrc/fast_iv.cu`` (:class:`_FastIVKernel`), a
+    CPU one by the torch ops (:class:`_FastIVCore`).
     """
-    given_price, forward, strike, ttm, discfactor, sgn = _broadcast_inputs(
-        forward, ttm, strike, given_price, discfactor, optiontype)
+    inputs = _broadcast_inputs(forward, ttm, strike, given_price, discfactor, optiontype)
+    stages = (int(nb_bisect), int(nb_newton))
+    if _takes_kernel(inputs[0]):
+        vol = _FastIVKernel.apply(*inputs, *stages)[0]
+        # the Newton steps below carry both orders from any start at the root
+        return _implicit_newton(vol.detach(), *inputs) if higher_order else vol
     if higher_order:
-        vol = _fast_iv_impl(given_price, forward, strike, ttm, discfactor, sgn,
-                            int(nb_bisect), int(nb_newton))
-        return _implicit_newton(vol, given_price, forward, strike, ttm, discfactor, sgn)
-    return _FastIVCore.apply(given_price, forward, strike, ttm, discfactor, sgn,
-                             int(nb_bisect), int(nb_newton))
+        return _implicit_newton(_fast_iv_impl(*inputs, *stages), *inputs)
+    return _FastIVCore.apply(*inputs, *stages)
 
 
 def infer_bsm_implied_vol(forward, ttm, strike, given_price, discfactor=1.0,

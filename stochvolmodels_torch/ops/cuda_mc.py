@@ -314,6 +314,12 @@ def _raise_on_error(name: str, err: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
 
 
+def _batch_first(x: torch.Tensor, dim, size: int) -> torch.Tensor:
+    """``x`` with its vmapped dimension first (repeated ``size`` times where
+    it has none): a kernel's batch axis in a ``vmap`` rule."""
+    return x.expand(size, *x.shape) if dim is None else x.movedim(dim, 0)
+
+
 def simulate_logsv_terminal_cuda(seed: int,
                                  x0: torch.Tensor,
                                  sigma0: torch.Tensor,
